@@ -1,6 +1,6 @@
 """Application shell: CLI entry replacing the Win32/ImGui loop.
 
-TPU-native replacement for /root/reference/Source/Main.cpp (wWinMain +
+Replacement for the reference's Source/Main.cpp (wWinMain +
 message pump) and the interactive parts of Source/App.cpp: subcommands
 
   render       — render N frames of the demo scene to PNG
@@ -132,6 +132,7 @@ def cmd_render(args):
     if args.resume:
         ckpt_mod.save_rotating(sess.state, args.resume)
         print(f"checkpointed frame {int(sess.state.frame_index)}")
+    return np.asarray(img)
 
 
 def cmd_bench(args):
@@ -150,10 +151,14 @@ def cmd_bench(args):
     cfg = sess.pipe.cfg
     record = {
         "frames": args.frames,
-        "frame_ms": round(elapsed / args.frames * 1e3, 2),
-        "fps": round(args.frames / elapsed, 2),
+        "frame_ms": elapsed / args.frames * 1e3,
+        "fps": args.frames / elapsed,
         "resolution": f"{cfg.render_width}x{cfg.render_height}"
                       f"->{cfg.output_width}x{cfg.output_height}",
+        "textures_loaded": sess.host.atlas is not None,
+        "device": jax.devices()[0].device_kind,
+        "image_finite": bool(np.isfinite(np.asarray(img)).all()),
+        "image_mean": float(np.mean(np.asarray(img))),
     }
     counters = getattr(sess.state, "counters", None)
     if counters:
@@ -163,6 +168,7 @@ def cmd_bench(args):
         passes = sess.pipe.profile_passes(sess.state, pose)
         record["passes_ms"] = {k: round(v, 2) for k, v in passes.items()}
     print(json.dumps(record))
+    return record
 
 
 def cmd_set(args):
@@ -338,7 +344,7 @@ def cmd_interactive(args):
 
 def main(argv=None):
     p = argparse.ArgumentParser("drts_tpu",
-                                description="TPU-native path tracer")
+                                description="JAX real-time path tracer")
     p.add_argument("--settings", default="Settings/graphics.json",
                    help="JSON settings file (MyAppData analogue)")
     p.add_argument("--width", type=int, default=640)
@@ -403,7 +409,9 @@ def main(argv=None):
     it.set_defaults(fn=cmd_interactive)
 
     args = p.parse_args(argv)
-    args.fn(args)
+    from .utils import cache
+    cache.enable_compile_cache()
+    return args.fn(args)
 
 
 if __name__ == "__main__":

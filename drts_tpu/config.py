@@ -1,7 +1,7 @@
 """Configuration system: hierarchical settings with min/max clamping and JSON
 round-trip.
 
-TPU-native equivalent of the reference's config layer
+Equivalent of the reference's config layer
 (/root/reference/Source/MyAppData.h:133-446 + JSONHelpers.h): same defaults,
 same clamp-on-load ``Check()`` semantics, same enum-by-name serialization.
 Settings that change kernel *topology* (resolution, denoiser choice, RTXGI

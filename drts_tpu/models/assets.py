@@ -1,6 +1,6 @@
 """Asset loading: texture atlas construction from image files.
 
-TPU-native replacement for DirectXTex loading + the threaded
+Replacement for DirectXTex loading + the threaded
 ResourceDictionary (/root/reference/Source/TextureHelpers.ixx:34-138,
 ResourceHelpers.ixx:36-114): images decode host-side (PIL, gated), resize
 to one atlas resolution, sRGB-decode color maps, and stack into a single
@@ -14,6 +14,7 @@ import os
 
 import numpy as np
 
+from .. import CHECKOUT
 from ..utils import image as image_mod
 
 # Reference asset set (MyScene.ixx:161-165, 286-294).
@@ -31,7 +32,10 @@ TEXTURE_FILES = [
 ALIEN_BASE, ALIEN_METALLIC, ALIEN_ROUGH, ALIEN_NORMAL = 0, 1, 2, 3
 MOON_BASE, MOON_NORMAL, EARTH_BASE, EARTH_NORMAL = 4, 5, 6, 7
 
-DEFAULT_ASSET_DIR = "/root/reference/Assets/Textures"
+# The reference's texture files, when a checkout carries them (they are
+# not part of this repository yet; without them materials fall back to
+# their constant colors and the run reports textures_loaded = False).
+DEFAULT_ASSET_DIR = os.path.join(CHECKOUT, "assets", "textures")
 
 
 def _srgb_to_linear(x: np.ndarray) -> np.ndarray:

@@ -1,6 +1,6 @@
 """Mesh generators and tangent frames (host-side, numpy).
 
-TPU-native replacement for DirectXTK12 ``GeometricPrimitive::CreateGeoSphere``
+Replacement for DirectXTK12 ``GeometricPrimitive::CreateGeoSphere``
 (used at /root/reference/Source/MyScene.ixx:56) and DirectXMesh
 ``ComputeTangentFrame`` (MyScene.ixx:70). The geosphere is built the same
 way DirectXTK builds it — octahedron base, edge-midpoint subdivision,

@@ -1,6 +1,6 @@
 """PBR material parameters, structure-of-arrays.
 
-TPU-native reimplementation of /root/reference/Source/Material.ixx (POD
+Reimplementation of the reference's Source/Material.ixx (POD
 Material + texture-map slots): identical fields and defaults, but stored as
 one array per field over all objects — the layout every shading kernel wants
 on a vector machine.
@@ -12,7 +12,7 @@ import dataclasses
 
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
+from ..utils import struct
 
 
 @dataclasses.dataclass

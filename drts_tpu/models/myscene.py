@@ -1,7 +1,7 @@
 """The demo scene: 4 hero spheres, a ~441-sphere harmonic-oscillator field,
 and a Moon/Earth/Star orbital system.
 
-TPU-native reimplementation of /root/reference/Source/MyScene.ixx:52-303
+Reimplementation of the reference's Source/MyScene.ixx:52-303
 (MySceneDesc): same layout, radii, materials, spring/orbital initial
 conditions and physics parameters — built host-side in numpy with a
 deterministic mt19937 stream (Source/Random.ixx analogue), then packed into
@@ -318,7 +318,7 @@ def as_mesh_scene(host: MySceneHost, tessellation: int = 4) -> MySceneHost:
     tessellation 6; Scene.ixx:225-284 instances it ~448x through hardware
     BLAS/TLAS traversal). Every sphere becomes a mesh instance
     (scale = radius, same pose and material row); the analytic-sphere fast
-    path is the TPU-first substitution for THIS scene, and this converter
+    path is this framework's substitution for THIS scene, and this converter
     is the capability proof + benchmark workload for arbitrary triangle
     geometry at reference scale (round-3 VERDICT #6).
 

@@ -1,6 +1,6 @@
 """The flagship render pipeline: the frame orchestrator.
 
-TPU-native redesign of the reference's App layer
+Redesign of the reference's App layer
 (/root/reference/Source/App.cpp:144-643 Tick/Update/Render +
 RenderScene:1111-1283 + PostProcessGraphics:1460-1525): the imperative frame
 graph over command lists and ping-pong textures collapses into one pure
@@ -21,8 +21,7 @@ import dataclasses
 
 import jax
 import jax.numpy as jnp
-import numpy as np
-from flax import struct
+from ..utils import struct
 
 from .. import config as config_mod
 from ..ops import (camera as camera_mod, denoise, gbuffer, light as light_mod,
@@ -60,12 +59,9 @@ class PipelineConfig:
     # accumulator's (ADVICE r3 medium).
     taa_mode: str = "auto"
     # History resample filter ("bilinear" | "catmull"). Catmull-Rom
-    # scores marginally better under motion (orbit min 0.9507 vs 0.9502)
-    # but its XLA path costs 16 random row-reads per output pixel —
-    # measured 174 ms/frame at 1080p (BENCH r5: taa pass 12 -> 174 ms;
-    # the windowed Pallas reproject kernel only covers bilinear) — so
-    # bilinear ships; "catmull" stays available for quality-first
-    # offline use.
+    # reads 16 history pixels per output pixel against bilinear's 4, for
+    # a marginal gain under motion, so bilinear ships; "catmull" stays
+    # available for quality-first offline use.
     taa_history_filter: str = "bilinear"
     # TAA neighborhood variance-clip box size in std-devs (ops/taa
     # .TAAConfig.clip_gamma). The 1-sigma default pins history to the
@@ -75,11 +71,9 @@ class PipelineConfig:
     taa_clip_gamma: float = 1.0
     # Motion-adaptive clip target (ops/taa.TAAConfig.clip_gamma_motion):
     # gamma blends from taa_clip_gamma (static) to this value at motion
-    # saturation; < 0 disables. Shipping defaults = the r5 ab_motion
-    # bilinear winner (adapt0.2_s0.25: orbit min SSIM 0.936 -> 0.9502,
-    # static first frame 0.9816 — both fidelity bars held at real-time
-    # cost; the catmull variant's extra +0.0005 min-SSIM costs 162
-    # ms/frame, see taa_history_filter).
+    # saturation; < 0 disables. The default pair (0.2 at 0.25 px/frame)
+    # was chosen by an orbiting-camera SSIM sweep (python -m
+    # drts_tpu.fidelity --motion) that held both fidelity bars.
     taa_clip_gamma_motion: float = 0.2
     # Motion saturation scale for the adaptive clip, output px/frame
     # (ops/taa.TAAConfig.clip_motion_px).
@@ -116,23 +110,16 @@ class PipelineConfig:
     compact_from: int = 2
     # First SHARC-query bounce (ops/pathtrace.PathTraceConfig
     # .sharc_query_from; 1 = reference parity, 2 skips the dense
-    # full-frame bounce-1 query). Default 2: the dense b1 query measured
-    # 16 ms at 1080p (trace_b8_sharc_empty - trace_b8, stage-2 r4) while
-    # b1 cache hits are 12% of the ~1.4% of lanes that hit geometry at
-    # b1 (~7k hits/frame) — the worst trade in the frame. The op-level
-    # default stays 1 (reference semantics); this is a product setting.
+    # full-frame bounce-1 query). Default 2: the bounce-1 query runs over
+    # every pixel while only a small share of bounce-1 lanes hit geometry
+    # and find a cache entry. The op-level default stays 1 (reference
+    # semantics); this is a product setting.
     sharc_query_from: int = 2
     halton_period: int = 64
     # ReSTIR DI (App.cpp:1187-1229 PrepareReSTIRDI + RTXDI::Render chain).
     restir_enabled: bool = True
     restir: restir.ReSTIRConfig = dataclasses.field(
         default_factory=restir.ReSTIRConfig)
-    # Acceleration structure for the intersection kernel: "morton" uses the
-    # Morton-chunk-culled flat kernel (tight per-chunk bounds, block-level
-    # skip); "none" uses the plain flat sweep. (The fori-loop clustered
-    # kernel exists but compiles pathologically slowly under Mosaic and is
-    # not wired here.)
-    accel_mode: str = "morton"
     # Diagnostic view (ops/debugviz.py): "None" | "ReGIRCells" | "SHARC" |
     # "NRDValidation" — the reference's runtime correctness probes.
     debug_view: str = "None"
@@ -144,17 +131,16 @@ class PipelineConfig:
     # Update-trace cadence: 1 = every frame (reference parity,
     # Raytracing.ixx:114-148). N > 1 runs the downscaled update trace +
     # splat + resolve only on frames where frame_index % N == 0 (under
-    # lax.cond — skip frames pay none of the ~38 ms update cost); the
-    # cache's 64-frame staleness window (Source/SHARC.ixx:24) tolerates
-    # the staler entries. Default 2 — measured at the full fidelity
-    # guards (tools/ab_frame_cost.py, TPU r5): static SSIM 0.9809 and
-    # orbit min 0.9506 — bit-for-bit the baseline scores (the cache
-    # accelerates ~2% of rays; a one-frame-staler cache is invisible),
-    # for half the ~38 ms update cost on average.
+    # lax.cond — skip frames pay none of the update cost); the cache's
+    # 64-frame staleness window (Source/SHARC.ixx:24) tolerates the
+    # staler entries. Default 2: the static and orbit SSIM guards scored
+    # the same as with every-frame updates (the cache serves a small share
+    # of rays; a one-frame-staler cache is invisible), for half the
+    # update cost on average.
     sharc_update_period: int = 2
     # Texture fetch cutoff bounce for the flagship trace (see
     # ops/pathtrace.PathTraceConfig.texture_bounces; 1 = bounce-1
-    # material from constants, the measured ~6 ms trade).
+    # material from constants).
     texture_bounces: int = 2
 
     @classmethod
@@ -294,26 +280,8 @@ class RenderPipeline:
                   / max(cfg.render_width * cfg.render_height, 1))
         period = max(cfg.halton_period, int(round(8 * ratio2)))
         self.jitter_table = jnp.asarray(rng_mod.halton_jitter(period))
-        self.cluster_plan = None  # built at init_state (BLAS-build analogue)
 
     # -- state management ---------------------------------------------------
-
-    def build_plan(self, host: myscene.MySceneHost) -> None:
-        """Build the static cluster plan (the BLAS-build analogue)."""
-        from . import clusters
-        if host.scene.center.shape[0] == 0:
-            # All-mesh scene (myscene.as_mesh_scene): no sphere accel —
-            # the trace skips the sphere sweep entirely and the mesh path
-            # builds its own TLAS tables per frame.
-            self.cluster_plan = None
-        elif self.cfg.accel_mode == "morton":
-            # 32-sphere chunks beat 64 under the headline workload
-            # (tools/prof_fraction.py on TPU v5e: 42.3 vs 41.6 Mray/s).
-            self.cluster_plan = clusters.build_plan_morton(
-                np.asarray(host.scene.center), np.asarray(host.scene.radius),
-                max_members=32)
-        else:
-            self.cluster_plan = None
 
     def _use_real_prev_surface(self) -> bool:
         """Whether FrameState carries real previous-frame surface rows for
@@ -342,7 +310,6 @@ class RenderPipeline:
                    seed: int = 0) -> FrameState:
         if host is None:
             host = myscene.build(seed=seed)
-        self.build_plan(host)
         c = self.cfg
         return FrameState(
             frame_index=jnp.int32(0),
@@ -419,9 +386,8 @@ class RenderPipeline:
 
     def _stage_update(self, state: FrameState, pose: CameraPose, dt,
                       prev_pose: CameraPose | None = None):
-        """Physics + scene pose refresh + camera + accel refit
-        (App.cpp:556-557,972 and the TLAS-update analogue,
-        App.cpp:605-608)."""
+        """Physics + scene pose refresh (the TLAS-update analogue,
+        App.cpp:556-557,605-608,972) + camera."""
         c = self.cfg
         if c.physics_enabled:
             bodies = physics.step(state.bodies, dt, state.earth_gravity,
@@ -438,21 +404,12 @@ class RenderPipeline:
             scene = scene_mod.advance_pose(state.scene, bodies.position,
                                            bodies.rotation)
         cam = self._camera(state, pose, prev_pose)
+        return bodies, scene, cam
 
-        from ..ops import intersect
-        if self.cluster_plan is not None and intersect.pallas_enabled():
-            from . import clusters
-            accel = clusters.make_morton_accel(self.cluster_plan,
-                                               scene.center, scene.radius,
-                                               sort_origin=cam.position)
-        else:
-            accel = None
-        return bodies, scene, cam, accel
-
-    def _stage_gbuffer(self, scene, cam, accel, frame_index=0):
+    def _stage_gbuffer(self, scene, cam, frame_index=0):
         c = self.cfg
         return gbuffer.generate(scene, cam, c.render_width, c.render_height,
-                                c.block_size, accel=accel,
+                                c.block_size,
                                 thin_lens=c.aperture_radius > 0.0,
                                 frame_index=frame_index)
 
@@ -468,16 +425,16 @@ class RenderPipeline:
             grid = None
         return lights, grid
 
-    def _restir_initial(self, gbuf, scene, lights, grid, frame_index, accel):
+    def _restir_initial(self, gbuf, scene, lights, grid, frame_index):
         c = self.cfg
         surface = restir.make_surface(gbuf)
         cur = restir.initial_sampling(surface, scene, lights, grid,
                                       c.restir, frame_index,
-                                      c.block_size, accel=accel)
+                                      c.block_size)
         return surface, cur
 
     def _restir_temporal(self, state, cur, surface, lights, gbuf, reset,
-                         frame_index, scene=None, accel=None, cam=None):
+                         frame_index, scene=None, cam=None):
         hist = jax.tree.map(lambda x: jnp.where(reset, jnp.zeros_like(x), x),
                             state.reservoirs)
         prev_material = None
@@ -488,20 +445,20 @@ class RenderPipeline:
         return restir.temporal_resampling(
             cur, hist, surface, lights, gbuf.motion,
             state.prev_depth, state.prev_normal, self.cfg.restir,
-            frame_index, scene=scene, accel=accel,
+            frame_index, scene=scene,
             block_size=self.cfg.block_size, prev_material=prev_material,
             prev_camera_position=prev_cam_pos)
 
     def _restir_spatial(self, cur, surface, lights, frame_index,
-                        scene=None, accel=None):
+                        scene=None):
         return restir.spatial_resampling(cur, surface, lights,
                                          self.cfg.restir, frame_index,
-                                         scene=scene, accel=accel,
+                                         scene=scene,
                                          block_size=self.cfg.block_size)
 
-    def _restir_final(self, cur, surface, scene, lights, accel):
+    def _restir_final(self, cur, surface, scene, lights):
         return restir.final_shading(cur, surface, scene, lights,
-                                    self.cfg.block_size, accel=accel)
+                                    self.cfg.block_size)
 
     def _pt_cfg(self) -> pathtrace.PathTraceConfig:
         c = self.cfg
@@ -515,7 +472,7 @@ class RenderPipeline:
             texture_bounces=c.texture_bounces,
             sharc_query_from=c.sharc_query_from)
 
-    def _stage_sharc(self, state, scene, cam, di_total, accel, frame_index):
+    def _stage_sharc(self, state, scene, cam, di_total, frame_index):
         """SHARC update trace + resolve at downscaled res
         (Raytracing.ixx:114-148)."""
         c = self.cfg
@@ -527,7 +484,7 @@ class RenderPipeline:
         def do(sharc_st):
             return pathtrace.sharc_update_trace(
                 scene, cam, sharc_st, c.sharc, su_cfg, frame_index,
-                di_radiance=di_total, accel=accel)
+                di_radiance=di_total)
 
         if c.sharc_update_period <= 1:
             return do(state.sharc)
@@ -545,14 +502,14 @@ class RenderPipeline:
             state.sharc)
 
     def _stage_trace(self, scene, cam, gbuf, sharc_state, di_total,
-                     frame_index, accel):
+                     frame_index):
         c = self.cfg
         return pathtrace.trace_image(
             scene, cam, self._pt_cfg(), frame_index, gbuf=gbuf,
             sharc_state=sharc_state if c.sharc_enabled else None,
             sharc_cfg=c.sharc if c.sharc_enabled else None,
             di_radiance=di_total,
-            di_in_radiance=(c.denoiser == "None"), accel=accel)
+            di_in_radiance=(c.denoiser == "None"))
 
     def _stage_denoise(self, state, out, gbuf, cam, di_diffuse, di_specular,
                        reset):
@@ -658,14 +615,7 @@ class RenderPipeline:
     def _stage_post(self, state, color, gbuf, cam, reset, confidence=None,
                     dyn: DynamicSettings | None = None):
         """TAA upscale + bloom/sharpen/tonemap
-        (PostProcessGraphics, App.cpp:1460-1525).
-
-        NOTE: when standalone-jitted at 1080p this fused program hits an
-        XLA:TPU runtime kernel fault (round-2 BENCH failure; each half runs
-        fine alone, and the monolithic render_frame compiles the same ops
-        without faulting). profile_passes therefore times _stage_taa and
-        _stage_postfx as separate dispatches.
-        """
+        (PostProcessGraphics, App.cpp:1460-1525)."""
         taa_state, color = self._stage_taa(state, color, gbuf, cam, reset,
                                            confidence)
         return taa_state, self._stage_postfx(color, dyn)
@@ -687,14 +637,13 @@ class RenderPipeline:
         run = _run if _run is not None else (lambda name, fn, *args: fn(*args))
         fi = state.frame_index
 
-        bodies, scene, cam, accel = run(
+        bodies, scene, cam = run(
             "update", lambda s, p: self._stage_update(s, p, dt, prev_pose),
             state, pose)
 
         # --- RenderScene (App.cpp:1111-1283) --------------------------------
         gbuf = run("gbuffer",
-                   lambda s, cm, a: self._stage_gbuffer(s, cm, a, fi),
-                   scene, cam, accel)
+                   lambda s, cm: self._stage_gbuffer(s, cm, fi), scene, cam)
 
         # ReSTIR DI chain (RTXDI.ixx:141-241): light prep -> ReGIR build ->
         # initial -> temporal -> spatial -> final shading.
@@ -707,27 +656,25 @@ class RenderPipeline:
                 lambda s, cm: self._restir_prepare(s, cm, fi), scene, cam)
             surface, cur = run(
                 "restir_initial",
-                lambda g, s, li, gr, a: self._restir_initial(g, s, li, gr,
-                                                             fi, a),
-                gbuf, scene, lights, grid, accel)
+                lambda g, s, li, gr: self._restir_initial(g, s, li, gr, fi),
+                gbuf, scene, lights, grid)
             if c.restir.temporal_enabled:
                 cur = run(
                     "restir_temporal",
-                    lambda st, cu, su, li, g, s2, a2, cm:
+                    lambda st, cu, su, li, g, s2, cm:
                     self._restir_temporal(st, cu, su, li, g, reset, fi, s2,
-                                          a2, cm),
-                    state, cur, surface, lights, gbuf, scene, accel, cam)
+                                          cm),
+                    state, cur, surface, lights, gbuf, scene, cam)
             if c.restir.spatial_enabled:
                 cur = run(
                     "restir_spatial",
-                    lambda cu, su, li, s, a: self._restir_spatial(
-                        cu, su, li, fi, s, a),
-                    cur, surface, lights, scene, accel)
+                    lambda cu, su, li, s: self._restir_spatial(
+                        cu, su, li, fi, s),
+                    cur, surface, lights, scene)
             di_diffuse, di_specular = run(
                 "restir_final",
-                lambda cu, su, s, li, a: self._restir_final(cu, su, s, li,
-                                                            a),
-                cur, surface, scene, lights, accel)
+                lambda cu, su, s, li: self._restir_final(cu, su, s, li),
+                cur, surface, scene, lights)
             di_total = di_diffuse + di_specular
             reservoirs = cur
 
@@ -752,29 +699,28 @@ class RenderPipeline:
             if di_total is not None:
                 sharc_state, sharc_counters = run(
                     "sharc_update",
-                    lambda st, s, cm, di, a: self._stage_sharc(st, s, cm, di,
-                                                               a, fi),
-                    state, scene, cam, di_total, accel)
+                    lambda st, s, cm, di: self._stage_sharc(st, s, cm, di,
+                                                            fi),
+                    state, scene, cam, di_total)
             else:
                 sharc_state, sharc_counters = run(
                     "sharc_update",
-                    lambda st, s, cm, a: self._stage_sharc(st, s, cm, None,
-                                                           a, fi),
-                    state, scene, cam, accel)
+                    lambda st, s, cm: self._stage_sharc(st, s, cm, None, fi),
+                    state, scene, cam)
             frame_counters.update(sharc_counters)
 
         if di_total is not None:
             out = run(
                 "trace",
-                lambda s, cm, g, sh, di, a: self._stage_trace(s, cm, g, sh,
-                                                              di, fi, a),
-                scene, cam, gbuf, sharc_state, di_total, accel)
+                lambda s, cm, g, sh, di: self._stage_trace(s, cm, g, sh, di,
+                                                           fi),
+                scene, cam, gbuf, sharc_state, di_total)
         else:
             out = run(
                 "trace",
-                lambda s, cm, g, sh, a: self._stage_trace(s, cm, g, sh, None,
-                                                          fi, a),
-                scene, cam, gbuf, sharc_state, accel)
+                lambda s, cm, g, sh: self._stage_trace(s, cm, g, sh, None,
+                                                       fi),
+                scene, cam, gbuf, sharc_state)
 
         # --- PostProcessGraphics (App.cpp:1460-1525) -------------------------
         den_state = state.denoiser
@@ -861,34 +807,25 @@ class RenderPipeline:
                        dt=1.0 / 60.0, iters: int = 4) -> dict:
         """Time each frame-graph pass as its own jitted call (device-synced).
 
-        Returns {pass_name: ms}; a pass that fails on-device records -1.0
-        and profiling continues with an eagerly-computed stand-in, so one
-        bad kernel degrades attribution instead of killing the whole bench
-        record (round-2 failure mode). Stages come straight from
-        render_frame's ``_run`` hook — the same dataflow as the monolithic
-        frame, nothing hand-mirrored. The sum slightly exceeds the
-        monolithic jit's frame time because XLA can't overlap across the
-        sync boundaries here.
+        Returns {pass_name: ms}. A pass that fails raises. Stages come
+        straight from render_frame's ``_run`` hook — the same dataflow as
+        the monolithic frame, nothing hand-mirrored. The sum slightly
+        exceeds the monolithic jit's frame time because XLA can't overlap
+        across the sync boundaries here.
         """
         import time as _time
         timings: dict = {}
 
         def timed(name, fn, *args):
             jfn = jax.jit(fn)
-            try:
-                out = jfn(*args)  # compile + warm
-                jax.block_until_ready(out)
-                t0 = _time.perf_counter()
-                for _ in range(iters):
-                    out = jfn(*args)
-                jax.block_until_ready(out)
-                timings[name] = (_time.perf_counter() - t0) / iters * 1e3
-                return out
-            except Exception:
-                # Kernel fault / compile failure: mark it, keep the chain
-                # alive with an un-jitted (op-by-op dispatched) result.
-                timings[name] = -1.0
-                return fn(*args)
+            out = jfn(*args)  # compile + warm
+            jax.block_until_ready(out)
+            t0 = _time.perf_counter()
+            for _ in range(iters):
+                out = jfn(*args)
+            jax.block_until_ready(out)
+            timings[name] = (_time.perf_counter() - t0) / iters * 1e3
+            return out
 
         self.render_frame(state, pose, dt, _run=timed)
         return timings

@@ -1,6 +1,6 @@
 """Scene representation: sphere instances + materials + environment.
 
-TPU-native reimplementation of /root/reference/Source/Scene.ixx: instead of
+Reimplementation of the reference's Source/Scene.ixx: instead of
 BLAS/TLAS handles and per-instance transform matrices, the scene is a pytree
 of SoA arrays — current and previous poses (Scene::Refresh keeps both for
 motion vectors, Scene.ixx:185-219), per-instance material parameters, and
@@ -13,7 +13,7 @@ from __future__ import annotations
 import dataclasses
 
 import jax.numpy as jnp
-from flax import struct
+from ..utils import struct
 
 from ..ops import sky
 from ..utils import math as m
@@ -96,40 +96,15 @@ class HitSurface:
     prev_offset: jnp.ndarray = None
 
 
-# Packed per-object attribute table. TPU gathers are fast for one wide row
-# fetch and ~30x slower as many narrow fetches, so every per-ray attribute
-# lookup goes through ONE (K+M, 32) table gather (measured: 13 scalar
-# gathers = 224 ms vs one wide gather = 8 ms at 2M rays on v5e).
+# Packed per-object attribute table: every per-ray attribute lookup is ONE
+# wide row gather from this (K+M, 33) table instead of many narrow ones.
 # Columns: 0:3 center | 3 radius | 4:8 rotation | 8:11 prev_center |
 # 11:15 prev_rotation | 15:18 base_color rgb | 18 alpha | 19:22 emission |
 # 22 metallic | 23 roughness | 24 ior | 25 transmission |
 # 26 base_color_map | 27 normal_map | 28 metallic_map | 29 roughness_map |
-# 30 alpha_cutoff | 31 emissive_color_map.
+# 30 alpha_cutoff | 31 emissive_color_map | 32 transmission_map.
 # Rows [K, K+M) are mesh instances (radius 0; center/rotation = instance
 # transform, so the G-buffer's rigid-motion reprojection works unchanged).
-
-
-# One-hot fetches beat the XLA row gather once the index count dwarfs the
-# table (measured at 2M rays x (451, 33): gather 9.5 ms, one-hot MXU matmul
-# 5.4 ms — tools/prof_attr_fetch.py); below the threshold the gather wins.
-_ONEHOT_MIN = 1 << 16
-
-
-def fetch_rows(table: jnp.ndarray, idx: jnp.ndarray) -> jnp.ndarray:
-    """table[idx] for a small table: one-hot MXU matmul at frame scale,
-    plain gather below threshold. precision=HIGHEST keeps the f32 matmul
-    exact for a single 1.0 coefficient (same contract as
-    ops/light._onehot_fetch)."""
-    import jax
-    if idx.size < _ONEHOT_MIN:
-        return table[idx]
-    k, cols = table.shape
-    flat = idx.reshape(-1)
-    oh = (flat[:, None] == jnp.arange(k, dtype=flat.dtype)[None, :])
-    out = jax.lax.dot_general(oh.astype(jnp.float32), table,
-                              (((1,), (0,)), ((), ())),
-                              precision=jax.lax.Precision.HIGHEST)
-    return out.reshape(idx.shape + (cols,))
 
 
 def object_table(scene: SphereScene) -> jnp.ndarray:
@@ -175,18 +150,15 @@ def surface_attributes(scene: SphereScene, hit, ray_direction,
     """
     if table is None:
         table = object_table(scene)
-    row = fetch_rows(table, hit.index)           # the single wide fetch
+    row = table[hit.index]                       # the single wide fetch
     center = row[..., 0:3]
     radius = row[..., 3]
     rot = row[..., 4:8]
 
-    # Newton-refine the hit distance: the Pallas Morton kernels return t
-    # with its low mantissa bits truncated (the packed closest-hit
-    # encoding, ops/intersect_pallas._slim_tail). One Newton step on
-    # f(t) = |o + t d - c|^2 - r^2 recovers full f32 precision (the
-    # truncation error is ~6e-5 relative, deep inside Newton's quadratic
-    # basin). No-op (f = 0) for exact-t producers like the XLA path; mesh
-    # rows carry radius 0 and keep their t.
+    # Newton-refine the hit distance: the f32 quadratic root loses bits
+    # to cancellation on large spheres far from the ray origin. One Newton
+    # step on f(t) = |o + t d - c|^2 - r^2 recovers them; mesh rows carry
+    # radius 0 and keep their t.
     p_c = hit.position - center
     f = m.dot(p_c, p_c) - radius * radius
     df = 2.0 * m.dot(ray_direction, p_c)

@@ -1,20 +1,16 @@
-"""Packed per-material texture sets: the TPU-first texture pipeline.
+"""Packed per-material texture sets: one gather per hit.
 
 The reference samples up to 6 independent texture maps per hit with
 hardware bilinear units (/root/reference/Shaders/ShadingHelpers.hlsli:161-235
-EvaluateMaterial; maps bound per material, Source/Material.ixx:12-38). On
-TPU, random-access gathers run ~1-3 GB/s effective and cost scales with
-gather COUNT and row bytes (measured: 6-map bilinear from a 512^2 f32 atlas
-= 102 ms @2M rays; see tools/prof_texture.py), so the same design is ~30x
-off speed-of-light.
+EvaluateMaterial; maps bound per material, Source/Material.ixx:12-38).
+Without texture units every map and every bilinear tap is a separate
+gather, and cost scales with gather count and row bytes.
 
-TPU-native redesign: all maps a material uses are baked at load time into
-ONE texel row of u8 channels, and each texel row carries its entire 2x2
-bilinear footprint ("quad duplication"), so EvaluateMaterial needs exactly
-ONE 16-48 byte gather per hit — measured 10.8 ms @2M rays for the 32 B
-layout, 9.5x faster than the multi-map path. 4x memory for quad rows is
-cheap (a 256^2 2-word set = 2 MB) and keeps the table small enough for
-XLA's scoped-memory gather fast path.
+So all maps a material uses are baked at load time into ONE texel row of
+u8 channels, and each texel row carries its entire 2x2 bilinear footprint
+("quad duplication"), so EvaluateMaterial needs exactly ONE 16-48 byte
+gather per hit. 4x memory for quad rows is cheap (a 256^2 2-word set =
+2 MB) and keeps the table small.
 
 Texel word layout (u8x4 per u32 word, quad order c00 c10 c01 c11,
 word-interleaved per corner):
@@ -35,7 +31,7 @@ import dataclasses
 
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
+from ..utils import struct
 
 from .material import Materials
 
@@ -47,13 +43,11 @@ class PackedTextures:
     emissive_mean: jnp.ndarray  # (T', 3) per-set emissive-map mean (1 = none)
     size: int = struct.field(pytree_node=False)
     n_words: int = struct.field(pytree_node=False)
-    # Half-resolution mip (the MipmapGeneration.hlsl role, re-aimed at the
-    # TPU's actual texture cost model): deep-bounce fetches are nearest
-    # anyway (their ray footprint exceeds texel size — ops/pathtrace
-    # texture_bounces), so they read this 4x-smaller table instead — the
-    # area-filtered value their footprint wants AND a smaller hot gather
-    # source for XLA's scoped-memory fast path (a table's in-frame gather
-    # cost is dominated by whether it stays resident).
+    # Half-resolution mip (the MipmapGeneration.hlsl role): deep-bounce
+    # fetches are nearest anyway (their ray footprint exceeds texel size —
+    # ops/pathtrace texture_bounces), so they read this 4x-smaller table
+    # instead — the area-filtered value their footprint wants AND a
+    # smaller gather source.
     rows_half: jnp.ndarray | None = None    # (T'*(S/2)^2, 4*W) uint32
     half_size: int = struct.field(pytree_node=False, default=0)
     # Small f32 emissive mips for light preparation's per-TRIANGLE filtered

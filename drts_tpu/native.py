@@ -1,8 +1,8 @@
 """ctypes bindings for the native host runtime (native/drts_native.cpp).
 
 The C++ library provides the host-side heavy lifting the reference does in
-native code (geosphere generation, tangent frames, Halton tables, cluster
-planning, PNG encode — SURVEY.md §2.3 DirectXTK/DirectXMesh/MathLib rows).
+native code (geosphere generation, tangent frames, Halton tables, PNG
+encode — SURVEY.md §2.3 DirectXTK/DirectXMesh/MathLib rows).
 Every entry point has a numpy fallback in the pure-Python modules; `lib()`
 returns None when the .so hasn't been built (`make -C native`), and
 callers transparently fall back.
@@ -45,8 +45,6 @@ def _configure(so):
     so.tangent_frame.argtypes = [i32p, ctypes.c_int, f32p, f32p, f32p,
                                  ctypes.c_int, f32p]
     so.halton23.argtypes = [ctypes.c_int, ctypes.c_int, f32p]
-    so.cluster_plan.argtypes = [f32p, f32p, ctypes.c_int, ctypes.c_float,
-                                ctypes.c_int, i32p, ctypes.c_int]
     so.write_png.argtypes = [ctypes.c_char_p, u8p, ctypes.c_int,
                              ctypes.c_int, ctypes.c_int]
 
@@ -98,23 +96,6 @@ def halton23(count: int, start: int = 0):
     out = np.empty((count, 2), np.float32)
     so.halton23(count, start, _fp(out))
     return out
-
-
-def cluster_plan(positions, radii, cell_size: float = 4.0,
-                 max_members: int = 32):
-    so = lib()
-    if so is None:
-        return None
-    pos = np.ascontiguousarray(positions, np.float32)
-    rad = np.ascontiguousarray(radii, np.float32)
-    cap = pos.shape[0] + 8
-    out = np.empty((cap, max_members), np.int32)
-    c = so.cluster_plan(_fp(pos), _fp(rad), pos.shape[0],
-                        ctypes.c_float(cell_size), max_members, _ip(out),
-                        cap)
-    if c < 0:
-        return None
-    return out[:c].copy()
 
 
 def write_png(path: str, image: np.ndarray) -> bool:

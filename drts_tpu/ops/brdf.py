@@ -1,6 +1,6 @@
 """Microfacet BRDF terms and importance sampling.
 
-TPU-native reimplementation of the MathLib pieces the reference's BxDF layer
+Reimplementation of the MathLib pieces the reference's BxDF layer
 calls into (SURVEY.md §2.3 "NVIDIA MathLib (ml)" row; call sites in
 /root/reference/Shaders/BxDF.hlsli): ``BRDF::DistributionTerm`` (GGX),
 ``BRDF::GeometryTermMod`` (height-correlated Smith visibility),

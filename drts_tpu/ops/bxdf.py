@@ -1,13 +1,13 @@
 """Three-lobe BSDF: diffuse reflection, specular reflection (GGX), and
 specular transmission with dielectric Fresnel.
 
-TPU-native reimplementation of the reference device BSDF
+Reimplementation of the reference device BSDF
 (/root/reference/Shaders/BxDF.hlsli:36-321): same lobe structure, lobe
 probabilities (``ComputeLobeWeights``/``EstimateDiffuseProbability``),
 sampling (``Sample``), per-lobe PDF (``EvaluatePDF``) and evaluation
 (``Evaluate``) semantics — but fully vectorized and branch-free: every lane
-computes all three lobes and selects by the sampled lobe id, which is the
-natural formulation for TPU vector units (no divergent control flow).
+computes all three lobes and selects by the sampled lobe id, the natural
+formulation for array programs (no divergent control flow).
 
 Conventions: V points away from the surface (toward the previous vertex);
 L is the sampled outgoing direction; all directions are world-space unit
@@ -18,7 +18,7 @@ the reference, so ``throughput *= eval / pdf``.
 from __future__ import annotations
 
 import jax.numpy as jnp
-from flax import struct
+from ..utils import struct
 
 from ..utils import math as m
 from . import brdf
@@ -205,8 +205,8 @@ def _lobe_evals(bsdf: BSDF, sv: SurfaceVectors, l, v, h, weights):
 
 
 def _select_lobe(stacked, lobe, axis):
-    """Elementwise 3-way select along a lobe axis — NOT take_along_axis:
-    narrow gathers are ~30x slower than selects on TPU."""
+    """Elementwise 3-way select along a lobe axis instead of a narrow
+    take_along_axis gather."""
     d = _take(stacked, LOBE_DIFFUSE, axis)
     s = _take(stacked, LOBE_SPECULAR, axis)
     t = _take(stacked, LOBE_TRANSMISSION, axis)

@@ -1,6 +1,6 @@
 """Camera: GPU constants pytree, ray generation, and reprojection.
 
-TPU-native reimplementation of /root/reference/Source/Camera.ixx (host
+Reimplementation of the reference's Source/Camera.ixx (host
 camera + controller) and /root/reference/Shaders/Camera.hlsli (ray
 generation, world-position reconstruction). The scaled right/up/forward
 frame convention matches the reference: |forward| = focus distance,
@@ -13,7 +13,7 @@ from __future__ import annotations
 
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
+from ..utils import struct
 
 from ..utils import math as m
 from ..ops import brdf

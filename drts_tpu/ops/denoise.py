@@ -1,6 +1,6 @@
 """NRD-analogue denoisers: ReBLUR-style and ReLAX-style modes.
 
-TPU-native replacement for the NRD library integration (SURVEY.md §2.3 "NRD"
+Replacement for the NRD library integration (SURVEY.md §2.3 "NRD"
 row; host wrapper /root/reference/Source/NRD.ixx, composition passes
 /root/reference/Shaders/NRDComposition.hlsl): the same data contract —
 demodulated diffuse and specular radiance+hitdist channels in, denoised
@@ -26,9 +26,10 @@ from __future__ import annotations
 import dataclasses
 
 import jax.numpy as jnp
-from flax import struct
+from ..utils import struct
 
 from ..utils import math as m
+from .reproject import reproject
 
 
 @dataclasses.dataclass(frozen=True)
@@ -40,8 +41,7 @@ class DenoiseConfig:
     sigma_luminance: float = 4.0
     specular_hitdist_scale: float = 1.0
     # History reprojection filter: "nearest" costs 1 random row-read per
-    # pixel, "bilinear" 4 (random HBM reads dominate the temporal pass:
-    # ~60 ms vs ~250 ms at 1080p).
+    # pixel, "bilinear" 4.
     history_filter: str = "nearest"
     # Variance-guided history clamp (ReLAX anti-lag analogue): reprojected
     # history is clamped to mean +- gamma*sigma of the CURRENT frame's 3x3
@@ -83,11 +83,10 @@ class DenoiserState:
     moments: jnp.ndarray        # (H, W, 4) ReLAX luminance moments
     # (H, W, 8) f16-pair-packed fetch mirror (the RGBA16F history-texture
     # layout NRD itself uses): [diff.rg, diff.b|hd, spec.rg, spec.b|hd,
-    # hist|depth, oct normal, mom d1|d2, mom s1|s2]. 8 columns keep the
-    # 66 MB source inside XLA's scoped (S(1)) memory — the same gather
-    # from a 75 MB 9-column operand ran 6x slower (64 ms/frame in the
-    # profile). Depth in f16 (5e-4 rel) is far inside the 0.1 relative
-    # disocclusion threshold; history length <= 64 is f16-exact.
+    # hist|depth, oct normal, mom d1|d2, mom s1|s2]: one 32-byte row per
+    # pixel for the nearest history fetch. Depth in f16 (5e-4 rel) is far
+    # inside the 0.1 relative disocclusion threshold; history length
+    # <= 64 is f16-exact.
     packed: jnp.ndarray
     # (H, W, 2) f16-pair specular-only mirror [s.rg, s.b|hd] — the virtual-
     # point reprojection fetches specular at a DIFFERENT screen position
@@ -153,32 +152,10 @@ def init_state(height: int, width: int) -> DenoiserState:
         packed_spec=_pack_spec(zero4))
 
 
-def _bilinear_sample(img, y, x):
-    """Bilinear gather with clamp addressing; img (H, W, C), y/x (H, W).
-    Flattened single-axis gathers; callers pack multiple buffers into one
-    wide channel axis so the 4 taps are shared."""
-    h, w = img.shape[0], img.shape[1]
-    y0 = jnp.floor(y)
-    x0 = jnp.floor(x)
-    fy = (y - y0)[..., None]
-    fx = (x - x0)[..., None]
-    y0i = jnp.clip(y0.astype(jnp.int32), 0, h - 1)
-    y1i = jnp.clip(y0i + 1, 0, h - 1)
-    x0i = jnp.clip(x0.astype(jnp.int32), 0, w - 1)
-    x1i = jnp.clip(x0i + 1, 0, w - 1)
-    flat = img.reshape(-1, img.shape[-1])
-    c00 = flat[y0i * w + x0i]
-    c01 = flat[y0i * w + x1i]
-    c10 = flat[y1i * w + x0i]
-    c11 = flat[y1i * w + x1i]
-    return (c00 * (1 - fx) + c01 * fx) * (1 - fy) \
-        + (c10 * (1 - fx) + c11 * fx) * fy
-
-
 def _shift(img, dy: int, dx: int):
     """Clamp-addressed neighborhood shift via edge-pad + static slice —
-    index-vector gathers here cost ~2 ms per tap at 1080p and the a-trous
-    chain takes 100+ taps; pad+slice is a plain copy XLA fuses."""
+    the a-trous chain takes 100+ taps, and pad+slice is a plain copy XLA
+    fuses where an index-vector gather would not be."""
     h, w = img.shape[0], img.shape[1]
     pads = ((max(-dy, 0), max(dy, 0)), (max(-dx, 0), max(dx, 0)))
     pads = pads + ((0, 0),) * (img.ndim - 2)
@@ -197,36 +174,6 @@ def _shift_chw(img, dy: int, dx: int):
 
 
 _LUMA_W = (0.2126, 0.7152, 0.0722)
-
-
-def _reproject(packed, motion, history_filter: str):
-    """Motion-vector history fetch of a packed multi-channel buffer.
-    Returns (prev (H, W, C), in_bounds (H, W)). On TPU this runs the
-    tile-windowed Pallas reprojection kernel (ops/reproject_pallas.py —
-    smooth motion makes the resample a windowed stencil instead of a
-    random gather); the gather formulation below is the portable
-    reference. Nearest mode is safe on f16-packed bit payloads (a single
-    weight-1.0 tap copies rows bit-exactly)."""
-    from . import intersect
-    if intersect.pallas_enabled():
-        from . import reproject_pallas as rp
-        return rp.reproject_packed(
-            packed, motion, history_filter,
-            interpret=(intersect.BACKEND == "interpret"))
-    h, w = packed.shape[:2]
-    py = jnp.arange(h, dtype=jnp.float32)[:, None]
-    px = jnp.arange(w, dtype=jnp.float32)[None, :]
-    prev_x = px + motion[..., 0]
-    prev_y = py + motion[..., 1]
-    if history_filter == "nearest":
-        yi = jnp.clip(jnp.round(prev_y).astype(jnp.int32), 0, h - 1)
-        xi = jnp.clip(jnp.round(prev_x).astype(jnp.int32), 0, w - 1)
-        prev = packed.reshape(-1, packed.shape[-1])[yi * w + xi]
-    else:
-        prev = _bilinear_sample(packed, prev_y, prev_x)
-    in_bounds = ((prev_x >= 0) & (prev_x <= w - 1)
-                 & (prev_y >= 0) & (prev_y <= h - 1))
-    return prev, in_bounds
 
 
 def _neighborhood_clamp(prev, cur, gamma: float):
@@ -267,11 +214,9 @@ def virtual_specular_motion(surface_motion, hit_position, ray_direction,
 def _atrous_pass_chw(signal, normal, depth, step: int, cfg: DenoiseConfig):
     """One edge-stopping à-trous iteration, channel-FIRST (C, H, W).
 
-    Channel-last (H, W, 4) images tile the 4-wide trailing dim out to 128
-    lanes on TPU — a measured ~30x memory blowup across the tap chain
-    (554 GB accessed per denoise). With (C, H, W) the trailing (H, W)
-    dims tile natively. Edge-stopping falloffs are rational (1/(1+x)),
-    not exp, for transcendental-free taps.
+    With (C, H, W) each channel is a contiguous plane, so every shifted
+    tap is a plain strided copy. Edge-stopping falloffs are rational
+    (1/(1+x)), not exp, for transcendental-free taps.
     """
     kernel = ((0, 0, 0.25), (-1, 0, 0.125), (1, 0, 0.125), (0, -1, 0.125),
               (0, 1, 0.125), (-1, -1, 0.0625), (-1, 1, 0.0625),
@@ -318,7 +263,7 @@ def denoise(state: DenoiserState, diffuse, specular, motion, normal, depth,
     # (36 B/row); bilinear interpolation cannot run on packed bits, so
     # that mode falls back to the full-f32 concat.
     if cfg.history_filter == "nearest":
-        prev, in_bounds = _reproject(state.packed, motion, "nearest")
+        prev, in_bounds = reproject(state.packed, motion, "nearest")
         (prev_diffuse, prev_specular, prev_hist, prev_normal, prev_depth,
          _prev_moments) = _unpack_history(prev)
     else:
@@ -326,7 +271,7 @@ def denoise(state: DenoiserState, diffuse, specular, motion, normal, depth,
             [state.diffuse, state.specular,
              state.history_length[..., None],
              state.normal, state.depth[..., None]], axis=-1)
-        prev, in_bounds = _reproject(packed, motion, cfg.history_filter)
+        prev, in_bounds = reproject(packed, motion, cfg.history_filter)
         prev_diffuse = prev[..., 0:4]
         prev_specular = prev[..., 4:8]
         prev_hist = prev[..., 8]
@@ -346,7 +291,7 @@ def denoise(state: DenoiserState, diffuse, specular, motion, normal, depth,
     # neighborhood clamp below catches what they can't.
     spec_valid = history_valid
     if motion_specular is not None and cfg.specular_virtual:
-        prev_spec_v, in_bounds_v = _reproject(state.packed_spec,
+        prev_spec_v, in_bounds_v = reproject(state.packed_spec,
                                               motion_specular, "nearest")
         prev_specular = _unpack_spec(prev_spec_v)
         spec_valid = in_bounds_v & normal_ok & valid & ~reset
@@ -499,7 +444,7 @@ def denoise_relax(state: DenoiserState, diffuse, specular, motion, normal,
     # Packed history fetch (diffuse, specular, hist, normal, depth,
     # moments) — f16-packed mirror in nearest mode (see DenoiserState).
     if cfg.history_filter == "nearest":
-        prev, in_bounds = _reproject(state.packed, motion, "nearest")
+        prev, in_bounds = reproject(state.packed, motion, "nearest")
         (prev_diffuse, prev_specular, prev_hist, prev_normal, prev_depth,
          prev_moments) = _unpack_history(prev)
     else:
@@ -507,7 +452,7 @@ def denoise_relax(state: DenoiserState, diffuse, specular, motion, normal,
             [state.diffuse, state.specular,
              state.history_length[..., None],
              state.normal, state.depth[..., None], state.moments], axis=-1)
-        prev, in_bounds = _reproject(packed, motion, cfg.history_filter)
+        prev, in_bounds = reproject(packed, motion, cfg.history_filter)
         prev_diffuse = prev[..., 0:4]
         prev_specular = prev[..., 4:8]
         prev_hist = prev[..., 8]
@@ -523,7 +468,7 @@ def denoise_relax(state: DenoiserState, diffuse, specular, motion, normal,
     # Virtual-point specular fetch + anti-ghosting clamp (see `denoise`).
     spec_valid = history_valid
     if motion_specular is not None and cfg.specular_virtual:
-        prev_spec_v, in_bounds_v = _reproject(state.packed_spec,
+        prev_spec_v, in_bounds_v = reproject(state.packed_spec,
                                               motion_specular, "nearest")
         prev_specular = _unpack_spec(prev_spec_v)
         spec_valid = in_bounds_v & normal_ok & valid & ~reset

@@ -1,7 +1,7 @@
 """G-buffer generation: primary visibility + motion vectors + material
 channels.
 
-TPU-native reimplementation of
+Reimplementation of
 /root/reference/Shaders/GBufferGeneration.hlsl:117-232 (host:
 Source/GBufferGeneration.ixx): one primary-ray pass writing the channel set
 the temporal passes need. Channels are a pytree of dense (H, W, ...) arrays
@@ -17,7 +17,7 @@ from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
-from flax import struct
+from ..utils import struct
 
 from ..utils import math as m
 from ..models import scene as scene_mod
@@ -40,7 +40,7 @@ class GBuffer:
 
 def generate(scene: scene_mod.SphereScene, cam: camera_mod.Camera,
              width: int, height: int, block_size: int = 16384,
-             accel=None, thin_lens: bool = False,
+             thin_lens: bool = False,
              frame_index=0) -> GBuffer:
     """Primary-ray pass. Pure; jit together with the integrator.
 
@@ -65,7 +65,7 @@ def generate(scene: scene_mod.SphereScene, cam: camera_mod.Camera,
 
     table = scene_mod.object_table(scene)
     surf = trace_mod.trace_scene(scene, ray_o, ray_d, t_min, t_max,
-                                 block_size, accel=accel, table=table,
+                                 block_size, table=table,
                                  alpha_rounds=scene.alpha_test_rounds)
     mat = shading.evaluate_material(surf.material, surf.uv,
                                     surf.shading_normal, surf.tangent,
@@ -92,7 +92,7 @@ def generate(scene: scene_mod.SphereScene, cam: camera_mod.Camera,
     # Motion vectors: world hit -> object space (current pose) -> world via
     # previous pose -> previous camera NDC -> pixel delta. Pose columns come
     # from the packed object-table row (one gather, see models/scene.py).
-    row = scene_mod.fetch_rows(table, surf.object_index)
+    row = table[surf.object_index]
     obj_local = m.quat_rotate(m.quat_conj(row[..., 4:8]),
                               surf.position - row[..., 0:3])
     if surf.prev_offset is not None:

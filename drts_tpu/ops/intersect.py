@@ -1,81 +1,30 @@
-"""Ray-scene intersection kernels.
+"""Ray-scene intersection.
 
-TPU-native replacement for DXR acceleration-structure traversal
+Replaces DXR acceleration-structure traversal
 (/root/reference/Shaders/RaytracingHelpers.hlsli:7-55 ``TraceRay`` /
 RayQuery): the demo scene is sphere instances of one geosphere mesh
-(SURVEY.md §7 "sphere fast path"), so the primary kernel is an analytic
-ray-sphere test against *all* instances, evaluated as a handful of
-(rays × spheres) contractions — large, regular, mask-selected math that maps
-straight onto the TPU's vector units instead of divergent BVH pointer
-chasing. Rays are processed in fixed-size blocks (a `lax.scan` over blocks)
-so the (block × spheres) working set stays on-chip; a Pallas variant of the
-same contract can be swapped in transparently.
+(SURVEY.md §7 "sphere fast path"), so the primary test is an analytic
+ray-sphere root against *all* instances. On the GPU it runs as the Pallas
+kernels of `ops/sphere_kernel.py`; elsewhere as the XLA formulation below
+(rays in fixed-size `lax.scan` blocks so the (block x spheres) working set
+stays bounded), which is also the tests' reference.
 
-A triangle-mesh path (BVH) lives in `ops/trimesh.py` for general geometry.
+A triangle-mesh path lives in `ops/trimesh.py` for general geometry.
 """
 
 from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
-from flax import struct
 
 from ..utils import math as m
+from ..utils import struct
 
 INF = jnp.float32(jnp.inf)
 
-# Intersection backend: "auto" uses the Pallas VMEM-resident kernel on TPU
-# and the XLA formulation elsewhere; force with "xla" / "pallas", or
-# "interpret" to run the production Pallas kernels in interpret mode on any
-# backend (CPU test coverage of the TPU path).
-BACKEND = "auto"
 
-# Opt-in MXU intersection kernels: measured SLOWER than the planar sweep
-# with the packed-min slim tail (23.6 vs 19.1 ms / 2M incoherent rays on
-# v5e) — the rank-8 chunk matmuls at f32-HIGHEST precision underutilize
-# the systolic array and their issue cost exceeds the ~12 VPU ops they
-# replace. DRTS_MXU_KERNEL=1 opts in (kept for wider-table scenes).
-import os as _os
-_USE_MXU = _os.environ.get("DRTS_MXU_KERNEL", "") == "1"
-
-
-def _use_pallas() -> bool:
-    if BACKEND in ("pallas", "interpret"):
-        return True
-    if BACKEND == "xla":
-        return False
-    return jax.default_backend() == "tpu"
-
-
-def pallas_enabled() -> bool:
-    """True when intersection will run the Pallas kernels (so callers know
-    the accel tables will actually be consumed)."""
-    return _use_pallas()
-
-
-# Screen-tile ray ordering: a kernel ray block then covers an (8, 256)
-# pixel region instead of a scanline run, making block-level culling
-# (dead-block skip, Morton chunk bounds) spatially coherent. Pure
-# reshape/transpose — no gathers.
-TILE_H, TILE_W = 8, 128
-
-
-def _tileable(shape) -> bool:
-    return (len(shape) == 2 and shape[0] % TILE_H == 0
-            and shape[1] % TILE_W == 0)
-
-
-def _tile_order(x):
-    h, w = x.shape[:2]
-    rest = x.shape[2:]
-    r = x.reshape(h // TILE_H, TILE_H, w // TILE_W, TILE_W, *rest)
-    return r.swapaxes(1, 2).reshape(h * w, *rest)
-
-
-def _tile_unorder(flat, h, w):
-    rest = flat.shape[1:]
-    r = flat.reshape(h // TILE_H, w // TILE_W, TILE_H, TILE_W, *rest)
-    return r.swapaxes(1, 2).reshape(h, w, *rest)
+def _on_gpu() -> bool:
+    return jax.default_backend() == "gpu"
 
 
 @struct.dataclass
@@ -89,19 +38,18 @@ class SphereHit:
     is_front_face: jnp.ndarray  # (...,) bool: ray hit from outside
 
 
-def _block_intersect(o, d, t_min, t_max, centers, radii_sq, cc_rr):
-    """Closest-hit test of a ray block against all spheres.
+def _block_roots(o, d, t_min, t_max, centers, radii_sq, cc_rr):
+    """(B, K) hit distances of a ray block against all spheres (inf where
+    no root lies in [t_min, t_max]).
 
     o, d: (B, 3); t_min/t_max: (B,); centers: (K, 3);
     radii_sq: (K,) = r^2; cc_rr: (K,) = |c|^2 - r^2.
-    The quadratic coefficients for all (ray, sphere) pairs come from two
-    (B,3)x(3,K) contractions — no (B, K, 3) intermediate is materialized.
+    The quadratic's coefficients come from elementwise rank-1 products,
+    not a matmul: an f32 matmul may run at reduced precision (TF32 on the
+    GPU), which corrupts the cancellation-sensitive terms.
     """
     od = m.dot(o, d)                             # (B,)
     oo = m.dot(o, o)                             # (B,)
-    # Elementwise rank-1 contractions, NOT a matmul: the TPU MXU runs f32
-    # matmuls at bf16 precision by default, which corrupts the quadratic's
-    # cancellation-sensitive terms (verified: wrong hits at ~6% of rays).
     d_dot_c = (d[:, 0:1] * centers[None, :, 0]
                + d[:, 1:2] * centers[None, :, 1]
                + d[:, 2:3] * centers[None, :, 2])  # (B, K)
@@ -117,105 +65,82 @@ def _block_intersect(o, d, t_min, t_max, centers, radii_sq, cc_rr):
     # Take the near root unless it is before t_min (ray starts inside).
     t = jnp.where(t0 >= t_min[:, None], t0, t1)
     valid = (disc > 0.0) & (t >= t_min[:, None]) & (t <= t_max[:, None])
-    t = jnp.where(valid, t, INF)
-    best = jnp.argmin(t, axis=-1)                # (B,)
+    return jnp.where(valid, t, INF)
+
+
+def _block_intersect(o, d, t_min, t_max, centers, radii_sq, cc_rr):
+    """Closest hit of a ray block: (t (B,), index (B,) int32)."""
+    t = _block_roots(o, d, t_min, t_max, centers, radii_sq, cc_rr)
+    best = jnp.argmin(t, axis=-1)
     t_best = jnp.take_along_axis(t, best[:, None], axis=-1)[:, 0]
     return t_best, best.astype(jnp.int32)
 
 
+def _block_occluded(o, d, t_min, t_max, excl, centers, radii_sq, cc_rr):
+    """Any hit of a ray block, ignoring sphere excl[i] for ray i."""
+    t = _block_roots(o, d, t_min, t_max, centers, radii_sq, cc_rr)
+    k = jnp.arange(centers.shape[0], dtype=jnp.int32)
+    return jnp.any((t < INF) & (k[None, :] != excl[:, None]), axis=-1)
+
+
+def _flat_rays(origin, direction, t_min, t_max):
+    lead = origin.shape[:-1]
+    n = 1
+    for s in lead:
+        n *= s
+    return (origin.reshape(n, 3), direction.reshape(n, 3),
+            jnp.broadcast_to(t_min, lead).reshape(n),
+            jnp.broadcast_to(t_max, lead).reshape(n))
+
+
+def _blocked(fn, block_size: int, rays, centers, radii):
+    """Map `fn(block rays..., centers, radii_sq, cc_rr)` over fixed-size
+    ray blocks (padded rays have t_max < t_min and never hit)."""
+    n = rays[0].shape[0]
+    radii_sq = radii * radii
+    cc_rr = m.dot(centers, centers) - radii_sq
+    block = min(block_size, n)
+    pad = (-n) % block
+    if pad:
+        fill = (0.0, 1.0, 0.0, -1.0) + (-1,) * (len(rays) - 4)
+        rays = tuple(
+            jnp.concatenate([x, jnp.full((pad,) + x.shape[1:], v, x.dtype)])
+            for x, v in zip(rays, fill))
+    num_blocks = (n + pad) // block
+    blocks = tuple(x.reshape((num_blocks, block) + x.shape[1:])
+                   for x in rays)
+
+    def body(_, blk):
+        return None, fn(*blk, centers, radii_sq, cc_rr)
+
+    if num_blocks == 1:
+        out = body(None, tuple(x[0] for x in blocks))[1]
+    else:
+        _, out = jax.lax.scan(body, None, blocks)
+    return jax.tree.map(lambda x: x.reshape(-1)[:n], out)
+
+
 def intersect_spheres(origin, direction, t_min, t_max, centers, radii,
-                      block_size: int = 16384, attributes: bool = True,
-                      accel=None):
-    """Closest-hit of rays against all spheres (brute force, blocked).
+                      block_size: int = 16384, attributes: bool = True):
+    """Closest-hit of rays against all spheres (brute force).
 
     origin/direction: (..., 3); t_min/t_max broadcastable to (...,).
     centers: (K, 3); radii: (K,). Returns a SphereHit with leading shape
-    (...). `block_size` bounds the on-chip (block × K) working set.
+    (...). `block_size` bounds the XLA path's (block x K) working set.
     With attributes=False the normal/front-face fields are left zeroed —
     callers that go through `surface_attributes` (which derives them from
     the packed object table) pass False to skip a redundant gather.
     """
     lead_shape = origin.shape[:-1]
-    n = 1
-    for s in lead_shape:
-        n *= s
-    o = origin.reshape(n, 3)
-    d = direction.reshape(n, 3)
-    tmin = jnp.broadcast_to(t_min, lead_shape).reshape(n)
-    tmax = jnp.broadcast_to(t_max, lead_shape).reshape(n)
-
-    if _use_pallas():
-        from . import intersect_pallas as ip
-        from ..models import clusters as clusters_mod
-        interp = BACKEND == "interpret"
-        tiled = _tileable(lead_shape)
-        if tiled:
-            o = _tile_order(origin)
-            d = _tile_order(direction)
-            tmin = _tile_order(jnp.broadcast_to(t_min, lead_shape))
-            tmax = _tile_order(jnp.broadcast_to(t_max, lead_shape))
-        rays, _ = ip.pack_rays(o, d, tmin, tmax)
-        if isinstance(accel, clusters_mod.MortonAccel):
-            # Both Morton kernels return a mantissa-truncated t (the packed
-            # closest-hit encoding, intersect_pallas._slim_tail); consumers
-            # that shade recover the exact root via the Newton step in
-            # models/scene.surface_attributes.
-            if accel.mxu_a is not None and _USE_MXU:
-                t_best, idx = ip.intersect_morton_mxu(
-                    rays, accel.bounds_tbl, accel.table, accel.mxu_a,
-                    accel.n_chunks, accel.chunk, interpret=interp)
-            else:
-                t_best, idx = ip.intersect_morton_planar(
-                    rays, accel.bounds_tbl, accel.table, accel.n_chunks,
-                    accel.chunk, interpret=interp)
-        elif isinstance(accel, clusters_mod.ClusteredAccel):
-            t_best, idx = ip.intersect_clustered_planar(
-                rays, accel.bounds_tbl, accel.members_tbl, accel.n_clusters,
-                accel.max_members, interpret=interp)
-        else:
-            table = ip.pack_spheres(centers, radii)
-            t_best, idx = ip.intersect_spheres_planar(rays, table,
-                                                      interpret=interp)
-        if tiled:
-            t_best = _tile_unorder(t_best[:n], *lead_shape)
-            idx = _tile_unorder(jnp.minimum(idx[:n], centers.shape[0] - 1),
-                                *lead_shape)
-        else:
-            t_best = t_best[:n].reshape(lead_shape)
-            idx = jnp.minimum(idx[:n],
-                              centers.shape[0] - 1).reshape(lead_shape)
-        return _make_hit(origin, direction, t_best, idx, centers, attributes)
-
-    radii_sq = radii * radii
-    cc_rr = m.dot(centers, centers) - radii_sq
-
-    block = min(block_size, n)
-    pad = (-n) % block
-    if pad:
-        o = jnp.concatenate([o, jnp.zeros((pad, 3), o.dtype)])
-        d = jnp.concatenate([d, jnp.ones((pad, 3), d.dtype)])
-        tmin = jnp.concatenate([tmin, jnp.zeros((pad,), tmin.dtype)])
-        tmax = jnp.concatenate([tmax, jnp.full((pad,), -1.0, tmax.dtype)])
-    num_blocks = (n + pad) // block
-
-    def body(_, blk):
-        bo, bd, btmin, btmax = blk
-        return None, _block_intersect(bo, bd, btmin, btmax, centers,
-                                      radii_sq, cc_rr)
-
-    blocks = (o.reshape(num_blocks, block, 3),
-              d.reshape(num_blocks, block, 3),
-              tmin.reshape(num_blocks, block),
-              tmax.reshape(num_blocks, block))
-    if num_blocks == 1:
-        t_best, idx = body(None, jax.tree.map(lambda x: x[0], blocks))[1]
+    rays = _flat_rays(origin, direction, t_min, t_max)
+    if _on_gpu():
+        from . import sphere_kernel
+        t_best, idx = sphere_kernel.closest_hit(*rays, centers, radii)
     else:
-        _, (t_best, idx) = jax.lax.scan(body, None, blocks)
-        t_best = t_best.reshape(-1)
-        idx = idx.reshape(-1)
-    t_best = t_best[:n].reshape(lead_shape)
-    idx = idx[:n].reshape(lead_shape)
-    return _make_hit(origin, direction, t_best, idx, centers, attributes)
+        t_best, idx = _blocked(_block_intersect, block_size, rays, centers,
+                               radii)
+    return _make_hit(origin, direction, t_best.reshape(lead_shape),
+                     idx.reshape(lead_shape), centers, attributes)
 
 
 def _make_hit(origin, direction, t_best, idx, centers,
@@ -235,67 +160,27 @@ def _make_hit(origin, direction, t_best, idx, centers,
 
 
 def intersect_spheres_any(origin, direction, t_min, t_max, centers, radii,
-                          block_size: int = 16384, exclude_index=None,
-                          accel=None):
+                          block_size: int = 16384, exclude_index=None):
     """Any-hit (shadow/visibility ray) — boolean occlusion, optionally
-    excluding one object per ray (the target light itself).
+    ignoring one object per ray (the target light itself).
 
     The reference issues these via
     RAY_FLAG_ACCEPT_FIRST_HIT_AND_END_SEARCH for ReSTIR visibility
-    (Shaders/RTXDIAppBridge.hlsli:418-459). On TPU with a Morton accel this
-    runs the specialized any-hit Pallas kernel (no closest-t bookkeeping,
-    whole-block early-out once every lane is occluded).
+    (Shaders/RTXDIAppBridge.hlsli:418-459): a ray is occluded when any
+    sphere other than its excluded one has a root in [t_min, t_max].
     """
-    from ..models import clusters as clusters_mod
-
     lead_shape = origin.shape[:-1]
-    if _use_pallas() and isinstance(accel, clusters_mod.MortonAccel):
-        from . import intersect_pallas as ip
-        interp = BACKEND == "interpret"
-        tiled = _tileable(lead_shape)
-        if tiled:
-            o = _tile_order(origin)
-            d = _tile_order(direction)
-            tmin = _tile_order(jnp.broadcast_to(t_min, lead_shape))
-            tmax = _tile_order(jnp.broadcast_to(t_max, lead_shape))
-            excl = (_tile_order(jnp.broadcast_to(exclude_index, lead_shape))
-                    if exclude_index is not None else None)
-        else:
-            n0 = 1
-            for s in lead_shape:
-                n0 *= s
-            o = origin.reshape(n0, 3)
-            d = direction.reshape(n0, 3)
-            tmin = jnp.broadcast_to(t_min, lead_shape).reshape(n0)
-            tmax = jnp.broadcast_to(t_max, lead_shape).reshape(n0)
-            excl = (jnp.broadcast_to(exclude_index,
-                                     lead_shape).reshape(n0)
-                    if exclude_index is not None else None)
-        rays, n = ip.pack_rays(o, d, tmin, tmax)
-        if excl is None:
-            excl_row = jnp.full((1, rays.shape[1]), -1.0, jnp.float32)
-        else:
-            excl_row = jnp.full((rays.shape[1],), -1.0, jnp.float32) \
-                .at[:n].set(excl.astype(jnp.float32))[None, :]
-        rays9 = jnp.concatenate([rays, excl_row])
-        if accel.mxu_a is not None and _USE_MXU:
-            occ = ip.occlusion_morton_mxu(rays9, accel.bounds_tbl,
-                                          accel.table, accel.mxu_a,
-                                          accel.n_chunks, accel.chunk,
-                                          interpret=interp)
-        else:
-            occ = ip.occlusion_morton_planar(rays9, accel.bounds_tbl,
-                                             accel.table, accel.n_chunks,
-                                             accel.chunk, interpret=interp)
-        if tiled:
-            return _tile_unorder(occ[:n], *lead_shape)
-        return occ[:n].reshape(lead_shape)
-
-    hit = intersect_spheres(origin, direction, t_min, t_max, centers, radii,
-                            block_size, attributes=False, accel=accel)
-    if exclude_index is not None:
-        return hit.hit & (hit.index != exclude_index)
-    return hit.hit
+    rays = _flat_rays(origin, direction, t_min, t_max)
+    excl = (jnp.full(rays[2].shape, -1, jnp.int32) if exclude_index is None
+            else jnp.broadcast_to(exclude_index, lead_shape).reshape(-1)
+            .astype(jnp.int32))
+    if _on_gpu():
+        from . import sphere_kernel
+        occ = sphere_kernel.any_hit(*rays, centers, radii, excl)
+    else:
+        occ = _blocked(_block_occluded, block_size, rays + (excl,), centers,
+                       radii)
+    return occ.reshape(lead_shape)
 
 
 def safe_spawn_point(position, flat_normal, direction, scale=None):

@@ -1,12 +1,12 @@
 """Light preparation: emissive-instance list, power table, and sampling.
 
-TPU-native reimplementation of the reference's light pipeline front end
+Reimplementation of the reference's light pipeline front end
 (/root/reference/Source/LightPreparation.ixx +
 Shaders/LightPreparation.hlsl + Shaders/Light.hlsli). The reference
 enumerates emissive *triangles* into LightInfo records and builds a
 Z-curve power PDF texture + mips for hierarchical sampling
 (LightPreparation.hlsl:130-133, MipmapGeneration.hlsl). Our scene's lights
-are emissive sphere instances, and on TPU the natural equivalent of the
+are emissive sphere instances, and the array-program equivalent of the
 PDF-texture descent is a power CDF + vectorized ``searchsorted`` — same
 distribution, one dense op. Sphere lights are sampled by solid-angle cone
 sampling (exact for non-penetrating spheres), the analogue of triangle
@@ -17,7 +17,7 @@ from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
-from flax import struct
+from ..utils import struct
 
 from ..utils import math as m
 from ..models.scene import SphereScene
@@ -36,9 +36,7 @@ class Lights:
 
     Per-frame product of light preparation (LightPreparation::Process).
     Reservoirs and candidate streams carry *compact* indices: per-ray
-    attribute fetches then run over a (L, 9|16) table, small enough for the
-    one-hot-matmul fetch (`_onehot_fetch`) — a 2M-lane row gather from a
-    small table costs ~8 ms on TPU, the equivalent MXU matmul ~1 ms.
+    attribute fetches then gather rows of a small (L, 9|16) table.
 
     Two light kinds share the compact table (the reference's light pipeline
     is emissive-TRIANGLE based, LightPreparation.hlsl:86-133 + Light.hlsli
@@ -87,37 +85,9 @@ class LightRows:
     kind: jnp.ndarray | None = None  # (...,) bool: True = triangle
 
 
-# One-hot fetches pay off once the index count dwarfs the table; below the
-# threshold (CPU tests, small frames) the plain gather wins.
-_ONEHOT_MIN = 1 << 16
-
-
-def _onehot_fetch(table, idx):
-    """Exact row fetch table[idx] as an MXU matmul: one-hot(idx) @ table.
-    precision=HIGHEST makes the f32 matmul exact to f32 for a single
-    nonzero coefficient of 1.0 (verified against the gather in tests).
-    Chained-loop timing at 2M lanes x (128, 9): 2.0 ms vs 5.3 ms for the
-    XLA gather; a VMEM-resident Pallas variant was tried and measured
-    WORSE (9.8 ms — per-grid-program overhead dominates at the small
-    block sizes its one-hot fits in)."""
-    k, cols = table.shape
-    flat = idx.reshape(-1)
-    oh = (flat[:, None] == jnp.arange(k, dtype=flat.dtype)[None, :])
-    out = jax.lax.dot_general(oh.astype(jnp.float32), table,
-                              (((1,), (0,)), ((), ())),
-                              precision=jax.lax.Precision.HIGHEST)
-    return out.reshape(idx.shape + (cols,))
-
-
-def _fetch(table, idx, force_onehot=False):
-    if force_onehot or idx.size >= _ONEHOT_MIN:
-        return _onehot_fetch(table, idx)
-    return table[idx]
-
-
 def fetch_rows(lights: Lights, idx) -> LightRows:
     """COMPACT-indexed light fetch; `aux` is the source object id."""
-    row = _fetch(lights.compact, idx)
+    row = lights.compact[idx]
     tri = {}
     if lights.has_triangles:
         tri = dict(e1=row[..., 9:12], e2=row[..., 12:15],
@@ -130,7 +100,7 @@ def fetch_rows(lights: Lights, idx) -> LightRows:
 def fetch_rows_object(lights: Lights, obj_idx) -> LightRows:
     """OBJECT-indexed fetch (for BRDF-ray candidates that hit geometry);
     `aux` is the compact light id, -1 when the object is not a light."""
-    row = _fetch(lights.table, obj_idx)
+    row = lights.table[obj_idx]
     return LightRows(center=row[..., 0:3], radius=row[..., 3],
                      emission=row[..., 4:7], power=row[..., 7],
                      aux=jnp.round(row[..., 8]).astype(jnp.int32))
@@ -139,7 +109,7 @@ def fetch_rows_object(lights: Lights, obj_idx) -> LightRows:
 def _face_emissive_avg(em_small, uvs, faces):
     """Per-(set, face) filtered emissive average -> (T', F, 3).
 
-    The TPU-native form of the reference's per-triangle anisotropic
+    The array form of the reference's per-triangle anisotropic
     SampleGrad whose gradient footprint covers the whole triangle
     (LightPreparation.hlsl:86-128). Static topology lets us do better than
     one filtered tap: an exact area average of the 32^2 emissive mip over
@@ -177,7 +147,9 @@ def _face_emissive_avg(em_small, uvs, faces):
     maskf = mask.astype(jnp.float32)                      # (F, P)
     count = jnp.sum(maskf, axis=1)                        # (F,)
     em_flat = em_small.reshape(t, s * s, 3)
-    sums = jnp.einsum("fp,tpc->tfc", maskf, em_flat)
+    # HIGHEST: a default-precision f32 product may run in TF32 on the GPU.
+    sums = jnp.einsum("fp,tpc->tfc", maskf, em_flat,
+                      precision=jax.lax.Precision.HIGHEST)
     avg = sums / jnp.maximum(count, 1.0)[None, :, None]
 
     # Sub-texel fallback: bilinear tap at the wrapped UV centroid (same
@@ -360,10 +332,9 @@ def prepare(scene: SphereScene) -> Lights:
 
 def _count_leq_chunked(cdf, u, chunk: int = 64):
     """#{cdf_j <= u} per query — searchsorted(side='right') for a small
-    sorted table, laid out sublane-major ((chunk, N) compares) so the
-    reduce runs along sublanes. Direct jnp.searchsorted lowers terribly on
-    TPU at millions of queries (scan: ~250 ms; compare_all / lane-major
-    broadcasts: tens of GB of traffic)."""
+    sorted table, as chunked (chunk, N) compare-and-count passes over the
+    table (a dense reduction per chunk instead of a per-query binary
+    search)."""
     import jax
     k = cdf.shape[0]
     k_pad = -(-k // chunk) * chunk
@@ -382,13 +353,13 @@ def _count_leq_chunked(cdf, u, chunk: int = 64):
 
 def sample_light_index(lights: Lights, u):
     """Power-proportional light pick: COMPACT index + its selection PDF.
-    The CDF inversion is the TPU analogue of the reference's PDF-texture
+    The CDF inversion is the array analogue of the reference's PDF-texture
     mip descent. Per-pixel candidate streams never call this directly —
     restir.build_regir_grid amortizes it into per-frame ReGIR cells plus
     power-RIS fallback rows (the LocalLightPresampling.hlsl role)."""
     idx = _count_leq_chunked(lights.cdf, u)
     idx = jnp.clip(idx, 0, lights.cdf.shape[0] - 1)
-    pdf = _fetch(lights.compact, idx)[..., 7] / jnp.maximum(
+    pdf = lights.compact[idx][..., 7] / jnp.maximum(
         lights.total_power, 1e-20)
     return idx, pdf
 

@@ -1,13 +1,12 @@
 """The wavefront path tracer — the framework's flagship compute pass.
 
-TPU-native redesign of the reference's raygen megakernel
+A wavefront redesign of the reference's raygen megakernel
 (/root/reference/Shaders/Raytracing.hlsl:103-415). The per-pixel bounce loop
 with divergent control flow is restructured bounce-synchronously (SURVEY.md
-§7): at each bounce the *entire* frame's rays intersect, shade, sample, and
-terminate together as dense masked vector ops — the formulation that keeps
-the TPU's 8×128 vector lanes full. Terminated lanes carry a False mask
-instead of being compacted; for ≤8 bounces the masked-dense form beats
-sort-based compaction on TPU (no gather/scatter traffic).
+§7): at each bounce the frame's rays intersect, shade, sample, and
+terminate together as dense masked array ops. Early bounces run over the
+full frame with terminated lanes masked; later bounces run on a compacted
+survivor buffer (PathTraceConfig.compact_from).
 
 Same integrator semantics as the reference: per-hit emission, three-lobe
 BSDF importance sampling with single-lobe selection, PDF-weighted
@@ -24,7 +23,7 @@ from functools import partial
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
+from ..utils import struct
 
 from ..utils import math as m
 from ..utils import rng as rng_mod
@@ -49,27 +48,20 @@ class PathTraceConfig:
     texture_bounces: int = 2
     # Compact-wavefront switchover: bounces >= compact_from run on a
     # compacted survivor buffer of n_pixels/compact_fraction lanes instead
-    # of full-frame masked-dense arrays. Measured at 1080p/8 bounces:
-    # bounces 2-8 carry ~130k live rays yet cost ~95 ms dense (scattered
-    # live lanes defeat the dead-block skip); compacted they cost a few ms
-    # per bounce. The SER/ray-compaction analogue of
+    # of full-frame masked-dense arrays: after bounce 1 only a small share
+    # of lanes is still live. The SER/ray-compaction analogue of
     # /root/reference/Shaders/RaytracingHelpers.hlsli:46-53. Set
     # compact_from > bounces to disable (pure dense).
-    # fraction sweep at 1080p/8 bounces under the full headline workload
-    # (textured + sort_origin, tools/prof_fraction.py on TPU v5e):
-    # /12 38.1 Mray/s, /16 39.9, /24 41.6, /32 overflows 18k paths.
-    # /24 is the tightest zero-overflow capacity for the demo scene
-    # (survivors land between the /32 cap 64.8k, which dropped 18k paths,
-    # and the /24 cap 86.4k); overflow silently drops path radiance but
-    # is surfaced per frame as the wavefront_overflow_paths counter.
+    # /24 is the tightest capacity at which the demo scene's survivors at
+    # 1080p did not overflow; overflow is surfaced per frame as the
+    # wavefront_overflow_paths counter (and re-run, see overflow_spill).
     #
     # compact_from = 1 compacts + coherence-sorts the BOUNCE-1 wavefront
     # too (segment [1,1] at n/compact_fraction_first capacity, then a
     # re-compaction to the tight deep capacity for bounces >= 2). Bounce-1
-    # rays are BSDF-scattered — pixel-order blocks give the intersection
-    # kernel white-noise direction bundles exactly like deep bounces, so
-    # the (octant, tile) sort re-arms the bundle-cone culls for ~half of
-    # all rays in a frame. The deep segment cascades in the bounce-1
+    # rays are BSDF-scattered, so pixel-order blocks hold white-noise
+    # directions exactly like deep bounces; the (octant, tile) sort groups
+    # them coherently. The deep segment cascades in the bounce-1
     # segment's slot space (no dense round-trip). Also enables the
     # compacted+sorted SHARC update trace.
     compact_from: int = 2
@@ -89,11 +81,10 @@ class PathTraceConfig:
     overflow_spill: bool = True
     # src-table builder for the compaction front-end (_compact_slots):
     # "scatter" (permuting-store scatter over all ns rows),
-    # "blocked_onehot" (segmented cumsum + per-block one-hot MXU matmul),
     # "two_level" (segmented cumsum + 2-level binary search),
     # "blocked_sort" (per-block stable sort packing live lanes to block
-    # heads + one direct gather per slot — no row-serial scatter, no
-    # per-slot bisection). Identical output; TPU cost differs.
+    # heads + one direct gather per slot). Identical output; only the
+    # memory schedule differs.
     compact_impl: str = "scatter"
     # Capacity divisor for the bounce-1 segment. Survivors there are all
     # primary hits with a valid scatter — routinely 60-80% of the frame,
@@ -102,14 +93,9 @@ class PathTraceConfig:
     # the bounce-1 segment buys — dead tail blocks skip cheaply anyway).
     compact_fraction_first: int = 1
     # Sort the compacted survivors by (direction octant, screen tile) before
-    # the deep sweep. Pixel-order compaction gives each RAY_BLOCK white-noise
-    # bounce directions, voiding the intersection kernel's bundle-cone cull
-    # (_bundle_summary: coherent requires every lane within 90° of the mean
-    # axis). Octant-major grouping guarantees a sub-90° cone per block;
-    # tile-minor keeps origins spatially local so the cone apex sphere stays
-    # small and the closest-hit distance cull bites. Per-path math is
-    # order-independent, so radiance is unchanged (tested) — only the chunk
-    # culls gain. The TPU analogue of SER coherence sorting
+    # the deep sweep: neighbouring lanes then share a direction octant and
+    # a screen region. Per-path math is order-independent, so radiance is
+    # unchanged (tested). The analogue of SER coherence sorting
     # (/root/reference/Source/Raytracing.ixx NVAPI SER usage).
     compact_sort: bool = True
     compact_sort_tile: int = 64
@@ -119,7 +105,7 @@ class PathTraceConfig:
     # stable 9-bucket octant partition instead (9 masked cumsums — two
     # orders of magnitude less traffic) over a STATIC tile-major
     # compaction order, which reproduces the key sort's exact
-    # (octant, tile, pixel) grouping (tools/sim_sort_cull.py). The deep
+    # (octant, tile, pixel) grouping. The deep
     # segment (~174k slots) keeps the key sort.
     compact_sort_partition_min: int = 500_000
     # Slot-gather schedule for the compacted segment's state pull
@@ -127,16 +113,15 @@ class PathTraceConfig:
     # sorted slot order (random rows into the 2M-row tables); "mono"
     # gathers at the MONOTONE compaction-rank order (coherent big-table
     # reads) and applies the coherence sort afterwards as a second
-    # (cap,)-row gather from the small rank-ordered intermediate (which
-    # fits scoped memory). Identical results — pure gather algebra
+    # (cap,)-row gather from the small rank-ordered intermediate.
+    # Identical results — pure gather algebra
     # (src_sorted[p] = src_rank[perm[p]]); only the memory schedule
     # differs.
     compact_gsel: str = "direct"
     # First bounce that queries the SHARC cache (reference queries from
-    # bounce 1, Raytracing.hlsl:261-291). Bounce-1 queries run DENSE over
-    # the full frame (~13 ms at 1080p: cache_key + packed-mirror gather on
-    # 2M lanes) for a measured ~12% hit rate; 2 restricts queries to the
-    # compacted deep segment (~86k lanes) where they are nearly free.
+    # bounce 1, Raytracing.hlsl:261-291). Bounce-1 queries run dense over
+    # the full frame for a low hit rate; 2 restricts queries to the
+    # compacted deep segment.
     sharc_query_from: int = 1
 
 
@@ -203,16 +188,14 @@ _BLOCKED_LB = 512  # lanes per compaction block (see _src_table_blocked)
 
 
 def _src_table_blocked(act_src, order_ids, cap: int, wave: int, impl: str):
-    """src-table builders that sidestep the 2M-row XLA scatter (TPU
-    scatters run row-serial, ~0.3 GB/s by rows processed — the measured
-    ~32 ms deep-segment entry). Both split the lane stream into
-    `_BLOCKED_LB`-lane blocks and compute per-block live ranks with a
-    SEGMENTED cumsum, then resolve each output slot to (block, rank):
+    """src-table builders without the full-stream scatter. Both split the
+    lane stream into `_BLOCKED_LB`-lane blocks and compute per-block live
+    ranks with a SEGMENTED cumsum, then resolve each output slot to
+    (block, rank):
 
-    - "blocked_onehot": per-block one-hot(rank) @ positions batched MXU
-      matmul (exact for int payloads < 2^24 at HIGHEST precision, the
-      `light._onehot_fetch` recipe) -> semi table (B, LB); output slots
-      then need one cheap (cap,) gather.
+    - "blocked_sort": per-block stable sort packing live lanes to the
+      block head -> semi table (B, LB); output slots then need one
+      (cap,) gather.
     - "two_level": 2-level binary search — searchsorted over the B block
       offsets, then log2(LB) manual bisection gathers into the block's
       cumsum row. cap*(1+log2(LB)) random 4-byte gathers instead of the
@@ -222,7 +205,6 @@ def _src_table_blocked(act_src, order_ids, cap: int, wave: int, impl: str):
     identical by construction to the scatter form (asserted in
     tests/test_intersect_scene.py)."""
     ns = act_src.shape[0]
-    assert ns < (1 << 24), "f32-exact one-hot payload limit"
     lb = _BLOCKED_LB
     b = -(-ns // lb)
     pad = b * lb - ns
@@ -250,30 +232,13 @@ def _src_table_blocked(act_src, order_ids, cap: int, wave: int, impl: str):
         # passes over the (B, LB) layout, all streaming, no row-serial
         # scatter and no per-slot bisection. semi[b, r] = the r-th live
         # lane's order id; each output slot then needs exactly ONE
-        # (cap,)-row gather (vs two_level's log2(LB) random gathers per
-        # slot — the measured loss of that form).
+        # (cap,)-row gather (vs two_level's log2(LB) gathers per slot).
         vals = jnp.pad(order_ids, (0, pad), constant_values=0).reshape(
             b, lb)
         _, semi = jax.lax.sort((a == 0, vals), dimension=1, num_keys=1,
                                is_stable=True)
         flat_at = jnp.clip(bi * lb + (s_query - off[bi]), 0, b * lb - 1)
         src = jnp.where(valid, semi.reshape(-1)[flat_at], ns)
-    elif impl == "blocked_onehot":
-        lrank = c - a                              # exclusive local rank
-        j = jnp.arange(lb, dtype=jnp.int32)
-        # oh[b, rank, lane] = live & (lrank[b, lane] == rank)
-        oh = ((a > 0)[:, None, :]
-              & (lrank[:, None, :] == j[None, :, None]))
-        vals = jnp.pad(order_ids, (0, pad),
-                       constant_values=0).reshape(b, lb)
-        semi = jax.lax.dot_general(
-            oh.astype(jnp.float32),                   # (b, rank, lane)
-            vals.astype(jnp.float32)[..., None],      # (b, lane, 1)
-            (((2,), (1,)), ((0,), (0,))),
-            precision=jax.lax.Precision.HIGHEST)[..., 0]
-        semi_i = jnp.round(semi).astype(jnp.int32)
-        flat_at = jnp.clip(bi * lb + (s_query - off[bi]), 0, b * lb - 1)
-        src = jnp.where(valid, semi_i.reshape(-1)[flat_at], ns)
     else:  # two_level
         target = s_query + 1 - off[bi]             # 1-based rank in block
         c_flat = c.reshape(-1)
@@ -312,9 +277,8 @@ def _compact_slots(act, l_dir_flat, pixel_ids, cfg, cap: int,
     if partition_mode and pixel_space:
         # Compact in STATIC tile-major pixel order: the stable octant
         # partition below then yields (octant, tile, pixel-in-tile) slot
-        # grouping — exactly the key sort's grouping (sim: 2x less
-        # surviving sweep work at bounce 1 vs pixel-row order,
-        # tools/sim_sort_cull.py) at counting-sort cost. tm/inv_tm are
+        # grouping — exactly the key sort's grouping — at counting-sort
+        # cost. tm/inv_tm are
         # trace-time numpy constants. Slot-space input is already
         # tile-grouped by the previous segment, so it compacts in place.
         ts = cfg.compact_sort_tile
@@ -343,10 +307,7 @@ def _compact_slots(act, l_dir_flat, pixel_ids, cfg, cap: int,
         # Permuting-store scatter (unique indices, drop mode — the fast
         # XLA lowering): dead lanes get the out-of-range slot `cap` and
         # are DROPPED instead of colliding on a dump slot (the colliding
-        # form serializes on the collisions). A searchsorted-over-cumsum
-        # gather variant was tried in r4 and measured SLOWER (binary
-        # search = cap*log2(ns) RANDOM gathers at ~0.3-3 GB/s;
-        # prof_trace_bounces b2-b1 38 ms vs 32 ms scatter).
+        # form serializes on the collisions).
         slot_of_src = jnp.where(keep_src, pos_src, cap)
         src = jnp.full((cap,), ns, jnp.int32).at[slot_of_src].set(
             order_ids, mode="drop", unique_indices=True)
@@ -440,7 +401,7 @@ def _compact_slots(act, l_dir_flat, pixel_ids, cfg, cap: int,
 def _trace_deep_compact(scene, table, cam, cfg: PathTraceConfig,
                         sharc_state, sharc_cfg, origin, l_dir, throughput,
                         prev_roughness, rng, active, start_bounce: int,
-                        accel, cap: int, end_bounce: int | None = None,
+                        cap: int, end_bounce: int | None = None,
                         di_valid=None, want_aov: bool = False,
                         return_state: bool = False, pixel_ids=None,
                         img_hw=None, wave: int = 0):
@@ -516,8 +477,7 @@ def _trace_deep_compact(scene, table, cam, cfg: PathTraceConfig,
         rays_add = rays_add + jnp.sum(c_active.astype(jnp.float32))
         surf = trace_mod.trace_scene(
             scene, c_origin, c_dir, zeros_c,
-            jnp.where(c_active, jnp.inf, -1.0), cfg.block_size,
-            accel=accel, table=table,
+            jnp.where(c_active, jnp.inf, -1.0), cfg.block_size, table=table,
             alpha_rounds=scene.alpha_test_rounds)
         if want_aov and bounce == start_bounce:
             c_hitdist = jnp.where(surf.valid, surf.distance, jnp.inf)
@@ -591,9 +551,7 @@ def _trace_deep_compact(scene, table, cam, cfg: PathTraceConfig,
 
     # Read contributions back into the input space (each path owns one
     # input element): element -> slot is just the cumsum position, so
-    # this is a GATHER with monotone indices — measured 6.9 ms as a
-    # scatter-add (XLA TPU scatter runs ~0.3 GB/s) vs streaming-rate as a
-    # gather.
+    # this is a GATHER with monotone indices rather than a scatter-add.
     mapper = (keep, pos, perm, cap)
 
     def to_space(slot_vals, fill):
@@ -639,7 +597,7 @@ def _slots_to_space(slot_vals, fill, mapper):
 
 def _deep_with_spill(scene, table, cam, cfg, sharc_state, sharc_cfg,
                      origin, l_dir, throughput, prev_roughness, rng, active,
-                     start_bounce, accel, cap, pixel_ids=None, img_hw=None):
+                     start_bounce, cap, pixel_ids=None, img_hw=None):
     """Terminal deep segment with optional overflow spill (see
     PathTraceConfig.overflow_spill): wave 0 always runs; when it
     overflows and spill is on, wave 1 re-runs the segment over the
@@ -648,7 +606,7 @@ def _deep_with_spill(scene, table, cam, cfg, sharc_state, sharc_cfg,
     seg = _trace_deep_compact(scene, table, cam, cfg, sharc_state,
                               sharc_cfg, origin, l_dir, throughput,
                               prev_roughness, rng, active, start_bounce,
-                              accel, cap, pixel_ids=pixel_ids,
+                              cap, pixel_ids=pixel_ids,
                               img_hw=img_hw)
     if not cfg.overflow_spill:
         return seg
@@ -657,7 +615,7 @@ def _deep_with_spill(scene, table, cam, cfg, sharc_state, sharc_cfg,
         s2 = _trace_deep_compact(scene, table, cam, cfg, sharc_state,
                                  sharc_cfg, origin, l_dir, throughput,
                                  prev_roughness, rng, active, start_bounce,
-                                 accel, cap, pixel_ids=pixel_ids,
+                                 cap, pixel_ids=pixel_ids,
                                  img_hw=img_hw, wave=1)
         return (s2["radiance"], s2["rays"], s2["overflow"], s2["counters"])
 
@@ -679,8 +637,7 @@ def _deep_with_spill(scene, table, cam, cfg, sharc_state, sharc_cfg,
 def trace_image(scene: scene_mod.SphereScene, cam: camera_mod.Camera,
                 cfg: PathTraceConfig, frame_index,
                 gbuf=None, sharc_state=None, sharc_cfg=None,
-                di_radiance=None, di_in_radiance: bool = True,
-                accel=None, accel_deep=None) -> TraceOutput:
+                di_radiance=None, di_in_radiance: bool = True) -> TraceOutput:
     """Render one frame's path-traced radiance (plus AOVs).
 
     Pure function of (scene, camera, frame index); jit with
@@ -688,12 +645,6 @@ def trace_image(scene: scene_mod.SphereScene, cam: camera_mod.Camera,
     passed the primary hit is reused from it (the reference reconstructs
     primaries from the G-buffer, Raytracing.hlsl:118-163) instead of
     re-traced.
-
-    ``accel_deep``: optional second Morton accel used for the COMPACTED
-    bounce sweeps only (bounce-ray blocks favor finer chunks — tighter
-    bounds cull better once directions are octant-sorted, while primary
-    blocks amortize fewer, fatter chunks; tools/sim_sort_cull.py).
-    Results are accel-independent; this is purely a scheduling choice.
     """
     h, w = cfg.height, cfg.width
     ndc = camera_mod.pixel_ndc(w, h, cam.jitter)
@@ -713,8 +664,7 @@ def trace_image(scene: scene_mod.SphereScene, cam: camera_mod.Camera,
         ray_d0 = gbuf.ray_direction
     else:
         primary_surf = trace_mod.trace_scene(
-            scene, ray_o0, ray_d0, t_min0, t_max0, cfg.block_size,
-            accel=accel, table=table,
+            scene, ray_o0, ray_d0, t_min0, t_max0, cfg.block_size, table=table,
             alpha_rounds=scene.alpha_test_rounds)
 
     class _P:  # minimal hit view over the primary surface
@@ -725,7 +675,7 @@ def trace_image(scene: scene_mod.SphereScene, cam: camera_mod.Camera,
     # Primary demodulation AOVs for the denoiser (GBufferGeneration.hlsl).
     # When a G-buffer is supplied its products are reused verbatim — the
     # reference reads them back instead of re-shading (Raytracing.hlsl:
-    # 118-163); re-evaluating here measured ~10 ms/frame at 1080p.
+    # 118-163).
     if gbuf is not None:
         p_mat = gbuf.mat
         p_albedo, p_f_env = gbuf.diffuse_albedo, gbuf.specular_albedo
@@ -796,7 +746,7 @@ def trace_image(scene: scene_mod.SphereScene, cam: camera_mod.Camera,
                 surf = trace_mod.trace_scene(
                     scene, origin, l_dir, jnp.zeros((h, w)),
                     jnp.where(active, jnp.inf, -1.0), cfg.block_size,
-                    accel=accel, table=table,
+                    table=table,
                     alpha_rounds=scene.alpha_test_rounds)
                 ray_d = l_dir
                 hit_ok = surf.valid
@@ -924,7 +874,7 @@ def trace_image(scene: scene_mod.SphereScene, cam: camera_mod.Camera,
                 seg = _trace_deep_compact(
                     scene, table, cam, cfg, sharc_state, sharc_cfg,
                     origin, l_dir, throughput, prev_roughness, rng, active,
-                    1, accel_deep or accel, cap_first,
+                    1, cap_first,
                     end_bounce=1 if two_segment else cfg.bounces,
                     di_valid=di_valid, want_aov=sample_index == 0,
                     return_state=two_segment)
@@ -937,14 +887,14 @@ def trace_image(scene: scene_mod.SphereScene, cam: camera_mod.Camera,
                         scene, table, cam, cfg, sharc_state, sharc_cfg,
                         st["origin"], st["dir"], st["throughput"],
                         st["roughness"], st["rng"], st["active"],
-                        2, accel_deep or accel, cap,
+                        2, cap,
                         pixel_ids=st["pixel_ids"], img_hw=(h, w)),
                         through=seg)
             else:
                 fold(_deep_with_spill(
                     scene, table, cam, cfg, sharc_state, sharc_cfg,
                     origin, l_dir, throughput, prev_roughness, rng, active,
-                    cfg.compact_from, accel_deep or accel, cap))
+                    cfg.compact_from, cap))
 
         # NaN guard (Raytracing.hlsl:377).
         finite = jnp.all(jnp.isfinite(sample_radiance), axis=-1,
@@ -980,7 +930,7 @@ def trace_image_jit(scene, cam, cfg: PathTraceConfig, frame_index):
 
 def sharc_update_trace(scene: scene_mod.SphereScene, cam: camera_mod.Camera,
                        sharc_state, sharc_cfg, cfg: PathTraceConfig,
-                       frame_index, di_radiance=None, accel=None):
+                       frame_index, di_radiance=None):
     """The SHARC_UPDATE pass: a low-res trace that splats path radiance into
     the hash-grid cache (Raytracing.hlsl SHARC_UPDATE permutation,
     dispatched at renderSize/DownscaleFactor — Raytracing.ixx:114-148).
@@ -1026,7 +976,7 @@ def sharc_update_trace(scene: scene_mod.SphereScene, cam: camera_mod.Camera,
     active = jnp.ones((h, w), bool)
     l_dir = ray_d
     surf = trace_mod.trace_scene(scene, ray_o, ray_d, t_min, t_max,
-                                 cfg.block_size, accel=accel, table=table,
+                                 cfg.block_size, table=table,
                                  alpha_rounds=scene.alpha_test_rounds)
 
     # Bounce >= 1 optionally runs compacted + coherence-sorted (the same
@@ -1050,8 +1000,7 @@ def sharc_update_trace(scene: scene_mod.SphereScene, cam: camera_mod.Camera,
                     surf.position, surf.geometric_normal, l_dir)
             surf = trace_mod.trace_scene(
                 scene, origin, l_dir, jnp.zeros(active.shape),
-                jnp.where(active, jnp.inf, -1.0), cfg.block_size,
-                accel=accel, table=table,
+                jnp.where(active, jnp.inf, -1.0), cfg.block_size, table=table,
                 alpha_rounds=scene.alpha_test_rounds)
 
         miss = active & ~surf.valid

@@ -1,6 +1,6 @@
 """On-device rigid-body dynamics for sphere scenes.
 
-TPU-native replacement for the PhysX layer (SURVEY.md §2.3 "PhysX" row):
+Replacement for the PhysX layer (SURVEY.md §2.3 "PhysX" row):
 the force model ports the physics formulas from
 /root/reference/Source/PhysX.h:13-35 (universal gravitation, simple harmonic
 motion) and the per-frame force application from
@@ -8,8 +8,8 @@ motion) and the per-frame force application from
 oscillator field, earth gravity on the moon — and on everything when
 toggled — and a fixed 10 m/s² star pull when toggled). Contact response is
 an impulse solver over all sphere pairs — a dense (K, K) masked computation,
-which for K≈450 is exactly the shape TPUs like; PhysX's broadphase trees
-would be slower here than the brute-force vector form.
+which for K≈450 is small dense work; PhysX's broadphase trees would be
+slower here than the brute-force vector form.
 
 Everything is jitted; the step never leaves the chip, so
 step → TLAS-refit → trace stays a single XLA program.
@@ -19,7 +19,7 @@ from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
-from flax import struct
+from ..utils import struct
 
 from ..utils import math as m
 

@@ -1,6 +1,6 @@
 """Post-processing: bloom, merge, sharpening, tone mapping, mip generation.
 
-TPU-native reimplementation of the reference's post chain
+Reimplementation of the reference's post chain
 (/root/reference/Source/{Bloom,Merge,MipmapGeneration}.ixx +
 /root/reference/Shaders/{Bloom,Merge,MipmapGeneration}.hlsl and the
 DirectXTK12 ToneMapPostProcess operators used at App.cpp:1731-1757).
@@ -11,6 +11,7 @@ dense vector code.
 
 from __future__ import annotations
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 
@@ -89,7 +90,9 @@ def tonemap_hdr10(x, exposure: float = 1.0, paper_white_nits: float = 200.0,
     reference's three ColorPrimaryRotation variants."""
     v = jnp.maximum(x * exposure, 0.0)
     mat = jnp.asarray(COLOR_ROTATIONS[color_rotation], v.dtype)
-    v = jnp.einsum("...c,rc->...r", v, mat)
+    # HIGHEST: a default-precision f32 product may run in TF32 on the GPU.
+    v = jnp.einsum("...c,rc->...r", v, mat,
+                   precision=jax.lax.Precision.HIGHEST)
     return st2084_encode(v * paper_white_nits)
 
 
@@ -146,8 +149,7 @@ def resize_bilinear(img, out_h: int, out_w: int):
 
 def _shift(img, dy: int, dx: int):
     """Clamp-addressed neighborhood shift via edge-pad + static slice —
-    index-vector gathers here cost ~2 ms per tap at 1080p and the a-trous
-    chain takes 100+ taps; pad+slice is a plain copy XLA fuses."""
+    a plain copy XLA fuses, where an index-vector gather would not be."""
     h, w = img.shape[0], img.shape[1]
     pads = ((max(-dy, 0), max(dy, 0)), (max(-dx, 0), max(dx, 0)))
     pads = pads + ((0, 0),) * (img.ndim - 2)
@@ -261,7 +263,7 @@ def chromatic_aberration(img, strength: float = 0.0):
 
 # ----------------------------------------------------------------------------
 # Mip pyramid (MipmapGeneration.hlsl wave-op 5-mip averager) — used for the
-# ReSTIR light-PDF texture. On TPU this is a plain reshape-mean reduction.
+# ReSTIR light-PDF texture, as a plain reshape-mean reduction.
 
 
 def generate_mips(img, levels: int):

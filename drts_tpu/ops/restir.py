@@ -1,7 +1,7 @@
 """ReSTIR DI: ReGIR grid presampling + initial/temporal/spatial reservoir
 resampling + final shading.
 
-TPU-native reimplementation of the NVIDIA RTXDI integration (SURVEY.md §2.3
+Reimplementation of the NVIDIA RTXDI integration (SURVEY.md §2.3
 "RTXDI" row; host /root/reference/Source/RTXDI.ixx:141-241 dispatch chain,
 device Shaders/{LocalLightPresampling,ReGIRPresampling,DIInitialSampling,
 DITemporalResampling,DISpatialResampling,DIFinalShading}.hlsl and the RAB_*
@@ -26,12 +26,13 @@ import dataclasses
 
 import jax
 import jax.numpy as jnp
-from flax import struct
+from ..utils import struct
 
 from ..utils import math as m
 from ..utils import rng as rng_mod
 from ..models.scene import SphereScene
-from . import bxdf, intersect, light as light_mod, restir_pallas
+from . import bxdf, intersect, light as light_mod
+from .reproject import reproject
 
 
 @dataclasses.dataclass(frozen=True)
@@ -87,8 +88,8 @@ class ReSTIRConfig:
     temporal_prev_surface: str = "pseudo"
     # Spatial neighbor addressing. "per_pixel" draws an independent disc
     # offset per pixel per round (RTXDI's per-pixel start into the
-    # neighbor-offset buffer) — on TPU each round is then a random row
-    # gather (~1-3 GB/s). "shared" degenerates the reference's
+    # neighbor-offset buffer) — each round is then a random row gather.
+    # "shared" degenerates the reference's
     # precomputed low-discrepancy offset buffer
     # (Rtxdi FillNeighborOffsetBuffer) to ONE offset per round, rotated
     # per frame — every pixel borrows from the same relative neighbor, so
@@ -103,15 +104,6 @@ class ReSTIRConfig:
     # schedule changes: surface fields stream from HBM once for all
     # candidates and the one-hot row fetch becomes a single taller matmul.
     candidate_batch: bool = False
-    # Run all light-candidate RIS rounds in the fused Pallas kernel
-    # (ops/restir_pallas.py — DIInitialSampling.hlsl's in-register
-    # candidate loop, the TPU way): surface SoA streams into VMEM once,
-    # every candidate's slot select / light fetch / cone sample / BSDF
-    # eval / reservoir update runs there. Applies only to ReGIR_RIS mode
-    # on sphere-only scenes with the Pallas backend active (else the XLA
-    # loop runs). Same RNG draws and update order; float reassociation
-    # differs at the ulp level.
-    initial_kernel: bool = True
 
 
 @struct.dataclass
@@ -239,11 +231,9 @@ def _target_pdf_rows(surface: Surface, rows: light_mod.LightRows, uv):
 
 
 def _target_pdf(surface: Surface, lights: light_mod.Lights, idx, uv):
-    """`_target_pdf_rows` plus the compact-row fetch (a one-hot MXU matmul
-    at frame scale — light.fetch_rows; a plain 2M-lane row gather from the
-    small table costs ~8 ms on TPU, the matmul ~1 ms). Returns the 7
-    shading pieces plus the fetched rows (rows.aux = source object id,
-    needed for visibility-ray self-exclusion)."""
+    """`_target_pdf_rows` plus the compact-row fetch (light.fetch_rows).
+    Returns the 7 shading pieces plus the fetched rows (rows.aux = source
+    object id, needed for visibility-ray self-exclusion)."""
     rows = light_mod.fetch_rows(lights, idx)
     return _target_pdf_rows(surface, rows, uv) + (rows,)
 
@@ -347,43 +337,10 @@ def _cell_of(grid: ReGIRGrid, position, n: int):
 # initial sampling (DIInitialSampling.hlsl)
 
 
-def _pack_surface_planar(surface: Surface):
-    """Surface -> the (24, N_pad) planar stream restir_pallas expects
-    (row layout = restir_pallas.ROW_*). Padded lanes carry valid = 0, so
-    their p_hat is 0 and the reservoir never takes."""
-    h, w = surface.depth.shape
-    n = h * w
-    blk = restir_pallas.RESTIR_BLOCK
-    n_pad = -(-n // blk) * blk
-
-    def fl(x):
-        x = x.reshape(-1).astype(jnp.float32)
-        if n_pad != n:
-            x = jnp.concatenate([x, jnp.zeros((n_pad - n,), jnp.float32)])
-        return x
-
-    sv, bs = surface.sv, surface.bsdf
-    rows = [
-        surface.position[..., 0], surface.position[..., 1],
-        surface.position[..., 2],
-        sv.shading_normal[..., 0], sv.shading_normal[..., 1],
-        sv.shading_normal[..., 2],
-        sv.front_geometric_normal[..., 0], sv.front_geometric_normal[..., 1],
-        sv.front_geometric_normal[..., 2],
-        surface.view[..., 0], surface.view[..., 1], surface.view[..., 2],
-        bs.base_color[..., 0], bs.base_color[..., 1], bs.base_color[..., 2],
-        bs.metallic, bs.roughness, bs.ior_i, bs.ior_o, bs.transmission,
-        surface.valid.astype(jnp.float32),
-        surface.lobe_weights[..., 0], surface.lobe_weights[..., 1],
-        surface.lobe_weights[..., 2],
-    ]
-    return jnp.stack([fl(r) for r in rows]), n, n_pad
-
-
 def initial_sampling(surface: Surface, scene: SphereScene,
                      lights: light_mod.Lights, grid: ReGIRGrid | None,
                      cfg: ReSTIRConfig, frame_index,
-                     block_size: int = 16384, accel=None) -> Reservoirs:
+                     block_size: int = 16384) -> Reservoirs:
     h, w = surface.depth.shape
     px = jax.lax.broadcasted_iota(jnp.int32, (h, w), 1)
     py = jax.lax.broadcasted_iota(jnp.int32, (h, w), 0)
@@ -407,9 +364,8 @@ def initial_sampling(surface: Surface, scene: SphereScene,
         cell_eff = jnp.where(inside, cell, fb_cell)
 
         # ONE candidate-row prefetch for ALL rounds: every slot of the
-        # pixel's cell in a single wide gather ((H, W) x s packed f32).
-        # The per-round gathers this replaces (grid row + tile row) were
-        # the bulk of this pass's 190 ms at round 1.
+        # pixel's cell in a single wide gather ((H, W) x s packed f32),
+        # instead of a grid-row + tile-row gather per round.
         rows_all = grid.packed[cell_eff]
 
     res_idx = jnp.zeros((h, w), jnp.int32)
@@ -423,16 +379,6 @@ def initial_sampling(surface: Surface, scene: SphereScene,
     m_total = float(n_l + n_b)
 
     n_valid = jnp.sum((lights.compact[:, 7] > 0).astype(jnp.float32))
-
-    # Fused Pallas path (ops/restir_pallas.py): all light-candidate rounds
-    # in one VMEM-resident kernel; the kernel also returns the winner's
-    # direction/distance/source-object so the final visibility ray skips
-    # the _target_pdf re-fetch. Gated to the sphere-only ReGIR default.
-    use_kernel = (cfg.initial_kernel and n_l > 0
-                  and cfg.local_light_mode == "ReGIR_RIS"
-                  and not lights.has_triangles
-                  and intersect.pallas_enabled())
-    win_dir = win_dist = win_aux = None
 
     def pick_candidate(u_slot):
         """Candidate light id + RIS source weight from one uniform (works
@@ -478,45 +424,7 @@ def initial_sampling(surface: Surface, scene: SphereScene,
             wi = p_hat * w_cand
         return p_hat, wi
 
-    if use_kernel:
-        # Same RNG draws in the same order as the sequential loop below,
-        # streamed to the kernel as planar rows.
-        uni_rows = []
-        for _ in range(n_l):
-            u2, rng = rng_mod.next_floats(rng, 2)
-            uv, rng = rng_mod.next_floats(rng, 2)
-            uni_rows += [u2[..., 0], u2[..., 1], uv[..., 0], uv[..., 1]]
-        cand_all_f, w_all = m.unpack2f16(rows_all)      # (H, W, s) each
-        slot_rows = [cand_all_f[..., j] for j in range(s)] \
-            + [w_all[..., j] for j in range(s)]
-        surf_p, n_flat, n_pad = _pack_surface_planar(surface)
-
-        def fl(x):
-            x = x.reshape(-1).astype(jnp.float32)
-            if n_pad != n_flat:
-                x = jnp.concatenate(
-                    [x, jnp.zeros((n_pad - n_flat,), jnp.float32)])
-            return x
-
-        uni_p = jnp.stack([fl(r) for r in uni_rows])
-        slots_p = jnp.stack([fl(r) for r in slot_rows])
-        out_f, out_i = restir_pallas.initial_light_candidates(
-            surf_p, uni_p, slots_p, lights.compact, n_l, s, n_b,
-            interpret=intersect.BACKEND == "interpret")
-
-        def unf(row):
-            return row[:n_flat].reshape(h, w)
-
-        res_uv = jnp.stack([unf(out_f[0]), unf(out_f[1])], axis=-1)
-        res_phat = unf(out_f[2])
-        w_sum = unf(out_f[3])
-        win_dir = jnp.stack([unf(out_f[4]), unf(out_f[5]), unf(out_f[6])],
-                            axis=-1)
-        win_dist = unf(out_f[7])
-        res_idx = unf(out_i[0])
-        win_aux = unf(out_i[1])
-        m_count = jnp.full((h, w), float(n_l), jnp.float32)
-    elif cfg.candidate_batch and n_l > 0:
+    if cfg.candidate_batch and n_l > 0:
         # One batched (n_l, H, W) evaluation: identical draws, update
         # order, and arithmetic as the sequential loop (bit-equal output)
         # — but surface fields stream once for all candidates and the n_l
@@ -595,7 +503,7 @@ def initial_sampling(surface: Surface, scene: SphereScene,
         # BRDF ray found no light are dead here — their occlusion bit is
         # never read (is_emissive is already false).
         occ_b = _occluded(origin, l_dir, light_t, scene, krows.aux,
-                          block_size, accel, live=ray_live & hit_light)
+                          block_size, live=ray_live & hit_light)
         is_emissive = hit_light & (krows.power > 0) & ~occ_b
         uv_b, inside_cone = _uv_from_direction(krows, surface.position,
                                                l_dir)
@@ -634,14 +542,6 @@ def initial_sampling(surface: Surface, scene: SphereScene,
         res_idx = jnp.where(take, jnp.maximum(cand_b, 0), res_idx)
         res_uv = jnp.where(take[..., None], uv_b, res_uv)
         res_phat = jnp.where(take, p_hat_b, res_phat)
-        if win_dir is not None:
-            # Keep the winner's shading pieces current so the final
-            # visibility ray can skip the _target_pdf re-fetch.
-            win_dir = jnp.where(take[..., None], l_dir, win_dir)
-            win_dist = jnp.where(take, jnp.where(jnp.isfinite(light_t),
-                                                 light_t, 0.0), win_dist)
-            win_aux = jnp.where(take, krows.aux, win_aux)
-
     w_out = jnp.where(res_phat > 0,
                       w_sum / (jnp.maximum(m_count, 1.0)
                                * jnp.maximum(res_phat, 1e-20)), 0.0)
@@ -649,19 +549,14 @@ def initial_sampling(surface: Surface, scene: SphereScene,
     # Initial visibility ray (DIInitialSampling final visibility test).
     # Dead where the reservoir is already worthless (sky pixels, empty
     # streams): the any-hit pass only pays for lanes whose bit is read.
-    if win_dir is not None:
-        # Kernel path carried the winner's direction/distance/source id —
-        # no re-fetch / re-sampling needed.
-        direction, dist, excl = win_dir, win_dist, win_aux
-    else:
-        _, direction, dist, _, _, _, _, rows = _target_pdf(surface, lights,
-                                                           res_idx, res_uv)
-        excl = rows.aux
+    _, direction, dist, _, _, _, _, rows = _target_pdf(surface, lights,
+                                                       res_idx, res_uv)
+    excl = rows.aux
     origin = intersect.safe_spawn_point(surface.position,
                                         surface.sv.front_geometric_normal,
                                         direction)
     occluded = _occluded(origin, direction, dist, scene, excl,
-                         block_size, accel,
+                         block_size,
                          live=surface.valid & (w_out > 0))
     w_out = jnp.where(occluded | ~surface.valid, 0.0, w_out)
 
@@ -692,26 +587,22 @@ def _intersect_tri_lights(lights: light_mod.Lights, origin, direction,
 
 
 def _occluded(origin, direction, light_dist, scene, exclude_obj,
-              block_size: int, accel=None, live=None):
+              block_size: int, live=None):
     """Visibility ray toward the selected light (RAB_GetConservativeVisibility,
     RTXDIAppBridge.hlsli:418-459): blocked if anything (sphere or mesh) is
     hit closer than the light surface. `exclude_obj` is the light's OBJECT
     id (rows.aux from a compact fetch), excluded from the occluder set.
-    Runs the specialized any-hit kernel on TPU.
 
     `live` masks lanes whose result the caller will discard (no light hit,
-    zero reservoir weight, invalid surface): they get a dead t-range so the
-    kernel's whole-block skips and its live-lane-only distance culls
-    (tmax_max) never pay for them — lanes with light_dist=inf otherwise
-    sweep the entire scene for an answer nobody reads (measured ~25 ms for
-    the BRDF-candidate pass at 1080p, where most lanes miss every light)."""
+    zero reservoir weight, invalid surface): they get a dead t-range, so
+    they hit nothing and a mesh sweep's bounding-sphere cull skips them."""
     from . import trace as trace_mod
     max_dist = jnp.maximum(light_dist - 1e-3, 0.0)
     if live is not None:
         max_dist = jnp.where(live, max_dist, -1.0)
     return trace_mod.occluded_scene(
         scene, origin, direction, max_dist,
-        exclude_obj, block_size, accel=accel)
+        exclude_obj, block_size)
 
 
 # ----------------------------------------------------------------------------
@@ -745,8 +636,8 @@ def _finalize(idx, uv, phat, w_sum, m_count):
 
 def _pack_reservoirs(res: Reservoirs, depth, normal, extra=None):
     """(H, W, 4[+E]) packed reservoir + guide rows for one-gather neighbor
-    fetches, bit-packed where precision allows (the fetch is bandwidth-
-    bound AND small sources stay in XLA's fast scoped gather memory):
+    fetches, bit-packed where precision allows (the fetch is
+    bandwidth-bound):
     [idx|m, uv, w_out, depth|oct8 normal]. idx <= 2048 and M counts are
     exact/near-exact in f16; uv quantization (~1e-3) perturbs the
     re-evaluated target pdf identically in numerator and stream weight,
@@ -830,13 +721,10 @@ def _prev_surface_from_rows(mrows, pn, pd, hist_ok, prev_camera_position,
 def temporal_resampling(cur: Reservoirs, prev: Reservoirs, surface: Surface,
                         lights: light_mod.Lights, motion, prev_depth,
                         prev_normal, cfg: ReSTIRConfig,
-                        frame_index, scene=None, accel=None,
+                        frame_index, scene=None,
                         block_size: int = 16384, prev_material=None,
                         prev_camera_position=None) -> Reservoirs:
     h, w = surface.depth.shape
-    py = jnp.arange(h, dtype=jnp.float32)[:, None] + jnp.zeros((1, w))
-    px = jnp.arange(w, dtype=jnp.float32)[None, :] + jnp.zeros((h, 1))
-
     pairwise = cfg.temporal_bias_correction in ("pairwise", "raytraced")
     real_prev = (pairwise and cfg.temporal_prev_surface == "real"
                  and prev_material is not None)
@@ -844,36 +732,10 @@ def temporal_resampling(cur: Reservoirs, prev: Reservoirs, surface: Surface,
     if real_prev:
         extra = jnp.concatenate([extra, prev_material], axis=-1)
     packed = _pack_reservoirs(prev, prev_depth, prev_normal, extra)
-    from . import intersect as intersect_mod
-    window_ok = None
-    if intersect_mod.pallas_enabled():
-        # Tile-windowed Pallas reprojection (nearest taps copy the packed
-        # bit rows exactly — see ops/reproject_pallas.py).
-        from . import reproject_pallas as rp
-        row, window_ok = rp.reproject_packed(
-            packed, motion, "nearest",
-            interpret=(intersect_mod.BACKEND == "interpret"))
-        idx_f, p_m = m.unpack2f16(row[..., 0])
-        u0, u1 = m.unpack2f16(row[..., 1])
-        pd, pn = m.unpack_depth_oct8(row[..., 3])
-        p_idx = jnp.round(idx_f).astype(jnp.int32)
-        p_uv = jnp.stack([u0, u1], axis=-1)
-        p_w = row[..., 2]
-        rest = row[..., 4:]
-    else:
-        prev_x = jnp.clip(jnp.round(px + motion[..., 0]).astype(jnp.int32),
-                          0, w - 1)
-        prev_y = jnp.clip(jnp.round(py + motion[..., 1]).astype(jnp.int32),
-                          0, h - 1)
-        p_idx, p_uv, p_m, p_w, pd, pn, rest = _fetch_packed(packed, prev_y,
-                                                            prev_x)
+    row, in_bounds = reproject(packed, motion, "nearest")
+    p_idx, p_uv, p_m, p_w, pd, pn, rest = _unpack_fetched(row)
 
     # History validity (depth/normal similarity like the denoiser's test).
-    in_bounds = ((px + motion[..., 0] >= 0) & (px + motion[..., 0] <= w - 1)
-                 & (py + motion[..., 1] >= 0)
-                 & (py + motion[..., 1] <= h - 1))
-    if window_ok is not None:
-        in_bounds = in_bounds & window_ok
     depth_ok = jnp.abs(pd - surface.depth) \
         <= cfg.depth_threshold * jnp.maximum(jnp.abs(surface.depth), 1e-3)
     normal_ok = m.dot(pn, surface.normal) >= cfg.normal_threshold
@@ -926,7 +788,7 @@ def temporal_resampling(cur: Reservoirs, prev: Reservoirs, surface: Surface,
                 surface.position, surface.sv.front_geometric_normal,
                 direction)
             occ = _occluded(origin, direction, dist, scene, rows_v.aux,
-                            block_size, accel,
+                            block_size,
                             live=hist_ok & (phat_c_xi > 0))
             phat_c_xi = jnp.where(occ, 0.0, phat_c_xi)
         m_c = cur.m_count
@@ -1069,7 +931,7 @@ def _spatial_neighbors(cur, surface, cfg, frame_index, with_surface: bool):
 
 def _spatial_pairwise(cur: Reservoirs, surface: Surface,
                       lights: light_mod.Lights, cfg: ReSTIRConfig,
-                      frame_index, scene=None, accel=None,
+                      frame_index, scene=None,
                       block_size: int = 16384) -> Reservoirs:
     """Pairwise-MIS spatial reuse: each neighbor is MIS-balanced against
     the canonical reservoir with confidence (M) weights,
@@ -1099,7 +961,7 @@ def _spatial_pairwise(cur: Reservoirs, surface: Surface,
             from_surface.position, from_surface.sv.front_geometric_normal,
             direction)
         occ = _occluded(origin, direction, dist, scene, rows.aux, block_size,
-                        accel, live=from_surface.valid)
+                        live=from_surface.valid)
         return (~occ).astype(jnp.float32)
 
     # Pass 1: cross-evaluations + the canonical MIS weight.
@@ -1145,11 +1007,11 @@ def _spatial_pairwise(cur: Reservoirs, surface: Surface,
 
 def spatial_resampling(cur: Reservoirs, surface: Surface,
                        lights: light_mod.Lights, cfg: ReSTIRConfig,
-                       frame_index, scene=None, accel=None,
+                       frame_index, scene=None,
                        block_size: int = 16384) -> Reservoirs:
     if cfg.spatial_bias_correction in ("pairwise", "raytraced"):
         return _spatial_pairwise(cur, surface, lights, cfg, frame_index,
-                                 scene=scene, accel=accel,
+                                 scene=scene,
                                  block_size=block_size)
     # "basic" 1/M mode (material/geometry similarity tests per
     # DISpatialResampling.hlsl:6-41; neighbor target pdfs re-evaluated at
@@ -1175,8 +1037,7 @@ def spatial_resampling(cur: Reservoirs, surface: Surface,
 
 
 def final_shading(res: Reservoirs, surface: Surface, scene: SphereScene,
-                  lights: light_mod.Lights, block_size: int = 16384,
-                  accel=None):
+                  lights: light_mod.Lights, block_size: int = 16384):
     """Returns (diffuse, specular) direct-illumination images (H, W, 3) —
     the channels the denoiser and Raytracing pass consume
     (Raytracing.hlsl:150-163 `directDiffuse/directSpecular`)."""
@@ -1186,7 +1047,7 @@ def final_shading(res: Reservoirs, surface: Surface, scene: SphereScene,
                                         surface.sv.front_geometric_normal,
                                         direction)
     occluded = _occluded(origin, direction, dist, scene, rows.aux,
-                         block_size, accel,
+                         block_size,
                          live=surface.valid & (res.w_out > 0)
                          & (p_hat > 0))
     # uv-measure integrand (f * Le * dω/duv) times the reservoir weight.

@@ -1,18 +1,17 @@
 """Material evaluation at hit points: texture application + normal mapping.
 
-TPU-native reimplementation of ``EvaluateMaterial`` and friends
+Reimplementation of ``EvaluateMaterial`` and friends
 (/root/reference/Shaders/ShadingHelpers.hlsli:61-235). The reference's 6
 independent per-material texture maps become ONE packed quad-duplicated
 texture-set row per hit (models/texpack.py): a single 16-48 byte gather
-replaces up to 24 narrow ones — measured 10.8 ms vs 102 ms @2M rays
-(tools/prof_texture.py). A map index of -1 means "slot unused" and
+replaces up to 24 narrow ones. A map index of -1 means "slot unused" and
 multiplies by 1, keeping every lane's control flow uniform.
 """
 
 from __future__ import annotations
 
 import jax.numpy as jnp
-from flax import struct
+from ..utils import struct
 
 from ..utils import math as m
 from ..models.material import Materials
@@ -26,8 +25,8 @@ def sample_atlas(atlas, tex_index, uv, filter: str = "bilinear"):
     (wrap in U, clamp in V — lat-long convention)."""
     t, s = atlas.shape[0], atlas.shape[1]
     idx = jnp.clip(tex_index, 0, t - 1)
-    # Single-axis gathers from the flattened atlas — multi-index-array
-    # advanced indexing lowers to a far slower XLA gather on TPU.
+    # Single-axis gathers from the flattened atlas rather than
+    # multi-index-array advanced indexing.
     flat = atlas.reshape(-1, atlas.shape[-1])
     base = idx * (s * s)
     if filter == "nearest":
@@ -98,7 +97,7 @@ def sample_packed(tex: PackedTextures, set_index, uv,
         # "nearest" callers are deep-bounce / wide-footprint fetches
         # (pathtrace texture_bounces policy): read the half-res mip — the
         # area-filtered value their footprint wants, from a 4x smaller
-        # (scoped-memory-friendlier) table (texpack.PackedTextures.rows_half,
+        # table (texpack.PackedTextures.rows_half,
         # the MipmapGeneration.hlsl role). "nearest0" pins level 0 (the
         # alpha-test fetch at primary hits, ops/trace.py — cutout
         # silhouettes must not blur).

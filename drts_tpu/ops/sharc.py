@@ -1,14 +1,16 @@
 """SHARC: hash-grid radiance cache for GI.
 
-TPU-native reimplementation of the NVIDIA RTXGI/SHARC integration
+Reimplementation of the NVIDIA RTXGI/SHARC integration
 (SURVEY.md §2.3 "RTXGI/SHARC" row; host /root/reference/Source/SHARC.ixx,
 device Shaders/SHARC.hlsl + the SharcUpdateHit/SharcGetCachedRadiance calls
-in Shaders/Raytracing.hlsl:175-186,245-316). Redesign for TPU:
+in Shaders/Raytracing.hlsl:175-186,245-316). Redesign as array passes:
 
 - The u64 open-addressing hash map with atomic-CAS insertion becomes a
   fixed-capacity direct-mapped table addressed by ``hash(key) % capacity``
-  with a 32-bit key fingerprint for verification: XLA's deterministic
-  scatter-add replaces device atomics entirely (SURVEY.md §7 hard part #2).
+  with a 32-bit key fingerprint for verification, updated by XLA
+  scatter-adds (SURVEY.md §7 hard part #2). On the GPU a scatter-add
+  runs with atomics, so the summation order, and the last bits of the
+  cache, can change from run to run.
   Slot collisions between *different* voxels are resolved last-writer-wins
   on the fingerprint, so a colliding minority of updates is dropped rather
   than corrupted — the same graceful degradation SHARC's bounded probe
@@ -31,7 +33,7 @@ import dataclasses
 
 import jax
 import jax.numpy as jnp
-from flax import struct
+from ..utils import struct
 
 from ..utils import math as m
 from ..utils import rng as rng_mod
@@ -61,10 +63,8 @@ class SHARCState:
 
     ``packed`` is the query-side mirror: one (C, 3) f32 row
     [r|g (f16), b|- (f16), meta] rebuilt densely at resolve so a cache
-    query costs ONE narrow 12-byte row-gather (three narrow f32 gathers
-    measured ~17 ms each at 2M lanes — the query was the dominant cost of
-    the main trace; smaller rows also keep the mirror inside XLA's scoped
-    gather memory). ``meta`` bit-packs the top 26 fingerprint bits with a
+    query costs ONE narrow 12-byte row-gather instead of three.
+    ``meta`` bit-packs the top 26 fingerprint bits with a
     6-bit sample count (capped at 63; the query threshold is 4). f16
     radiance matches the reference cache's compressed voxel storage."""
     fingerprint: jnp.ndarray   # (C,) uint32; 0 = empty
@@ -198,8 +198,7 @@ def _local_dedup(slots, payload, fp, capacity: int):
 
     Update rays are screen-ordered, so neighbors frequently land in the
     same voxel (distant surfaces map ~10 pixels to one voxel) — merging
-    them BEFORE the scatter cuts scatter rows several-fold, and the
-    scatter is ~55 ms/frame of the SHARC update (chained-loop measure).
+    them BEFORE the scatter cuts scatter rows several-fold.
     Merged-away rows get slot=capacity and are dropped by the drop-mode
     scatter. Each tree level folds the rows of the right half-group whose
     slot equals the left half-group's leader into that leader — a few
@@ -274,10 +273,9 @@ def splat_levels(state_accum, slots_list, fps_list, radiance_list,
     live = slots < capacity
     pos = jnp.cumsum(live.astype(jnp.int32)) - 1
     dropped_pre = jnp.maximum(pos[-1] + 1 - cap_live, 0)
-    # Permuting-store scatter (unique indices, drop mode — the fast XLA
-    # lowering), NOT searchsorted: binary search over the cumsum costs
-    # cap*log2(n) RANDOM gathers, measured ~as slow as the sort it saves
-    # (TPU random gathers run ~0.3-3 GB/s; prof_sharc_update r4).
+    # Permuting-store scatter (unique indices, drop mode), not
+    # searchsorted: binary search over the cumsum costs cap*log2(n)
+    # random gathers.
     dest = jnp.where(live & (pos < cap_live), pos, cap_live)
     idx = jnp.full((cap_live,), n0, jnp.int32).at[dest].set(
         jnp.arange(n0, dtype=jnp.int32), mode="drop", unique_indices=True)
@@ -304,9 +302,8 @@ def splat_levels(state_accum, slots_list, fps_list, radiance_list,
     # (frame metric sharc_splat_dropped_rows). Capacity n/6: survivors
     # after sort+dedup are the frame's distinct voxels (~50-120k of the
     # 1.17M-row stream at the default downscale — a voxel covers ~10-25
-    # update pixels), and the downstream scatter-add was the single most
-    # expensive op of the frame at the old n/2 (47 ms -> ~16 ms; rows
-    # processed price every scatter).
+    # update pixels), and rows processed price every downstream
+    # scatter-add.
     n = slots.shape[0]
     cap_rows = -(-n // 6 // 1024) * 1024
     keep = slots < capacity

@@ -1,6 +1,6 @@
 """Environment light evaluation.
 
-TPU-native reimplementation of ``GetEnvironmentLightColor``
+Reimplementation of ``GetEnvironmentLightColor``
 (/root/reference/Shaders/ShadingHelpers.hlsli:11-30): lat-long texture if
 present (rotated by the environment transform), else a constant color if its
 alpha >= 0, else the procedural sky gradient
@@ -10,7 +10,7 @@ alpha >= 0, else the procedural sky gradient
 from __future__ import annotations
 
 import jax.numpy as jnp
-from flax import struct
+from ..utils import struct
 
 from ..utils import math as m
 
@@ -23,8 +23,8 @@ class EnvironmentLight:
     texture: jnp.ndarray | None = None  # (H, W, 3) lat-long radiance or None
     # Quarter-res mip (post.generate_mips, the MipmapGeneration.hlsl role):
     # deep-bounce fetches read this — their cone footprint wants the
-    # area-filtered value, and the 16x smaller gather source stays in XLA's
-    # scoped-memory fast path (same policy as texpack.rows_half).
+    # area-filtered value, from a 16x smaller gather source (same policy
+    # as texpack.rows_half).
     texture_low: jnp.ndarray | None = None
 
 

@@ -1,7 +1,7 @@
 """Temporal anti-aliasing upscaler — the DLSS / XeSS super-resolution
 stand-in.
 
-TPU-native replacement for the Streamline/XeSS vendor integrations
+Stands in for the Streamline/XeSS vendor integrations
 (SURVEY.md §2.3: /root/reference/Source/Streamline.ixx, Source/XeSS.ixx,
 wired at App.cpp:1644-1708): jittered low-res rendering accumulated into a
 full-res history with motion-vector reprojection, Catmull-Rom history
@@ -16,10 +16,11 @@ from __future__ import annotations
 import dataclasses
 
 import jax.numpy as jnp
-from flax import struct
+from ..utils import struct
 
 from ..utils import math as m
 from . import post
+from .reproject import reproject
 
 # DLSS/XeSS-style quality-mode render-scale table.
 SCALE_FACTORS = {
@@ -42,19 +43,16 @@ class TAAConfig:
     blend_alpha: float = 0.1
     clip_gamma: float = 1.0      # variance-clip box size in std-devs
     # Motion-adaptive clip: gamma blends toward this value as per-pixel
-    # motion reaches ~1 output pixel/frame. ab_motion (r4 stage 6)
-    # measured a globally tight clip (0.5) winning under motion
-    # (orbit min 0.936 -> 0.949) but LOSING statically (first-frame
-    # 0.9816 -> 0.9733) — the adaptive form applies each where it wins.
-    # < 0 disables (gamma stays clip_gamma everywhere).
+    # motion reaches ~1 output pixel/frame. A globally tight clip helps
+    # under motion but costs static convergence; the adaptive form
+    # applies each where it wins. < 0 disables (gamma stays clip_gamma
+    # everywhere).
     clip_gamma_motion: float = -1.0
     # Motion magnitude (output px/frame) at which the adaptive gamma
-    # saturates to clip_gamma_motion. Stage-7 measured adapt@1.0px min
-    # 0.948 vs global-tight 0.9518: slow-moving pixels (<1px/frame) kept
-    # the loose box during the orbit — saturate faster.
+    # saturates to clip_gamma_motion.
     clip_motion_px: float = 1.0
-    # History resample: "catmull" = 16 random row-reads/pixel (sharpest),
-    # "bilinear" = 4. Random HBM reads dominate this pass on TPU.
+    # History resample: "catmull" = 16 row reads per pixel (sharpest),
+    # "bilinear" = 4.
     history_filter: str = "bilinear"
     # Jitter-aware sample accumulation (the DLSS-style reconstruction):
     # the current frame is resampled at its TRUE sub-pixel sample positions
@@ -68,28 +66,11 @@ class TAAConfig:
 @struct.dataclass
 class TAAState:
     history: jnp.ndarray         # (OH, OW, 3) output-res accumulated color
-    # (OH, OW, 2) f16-pair mirror [r|g, b|-]: the bilinear history fetch is
-    # random-access-bandwidth-bound (~2.8 GB/s effective on TPU), so the
-    # default path gathers 8-byte rows instead of 12 — NRD/DLSS likewise
-    # keep history in fp16.
-    packed: jnp.ndarray
-
-
-def _pack_rgb16(img):
-    return jnp.stack(
-        [m.pack2f16(img[..., 0], img[..., 1]),
-         m.pack2f16(img[..., 2], jnp.zeros_like(img[..., 2]))], axis=-1)
-
-
-def _unpack_rgb16(p):
-    r, g = m.unpack2f16(p[..., 0])
-    b, _ = m.unpack2f16(p[..., 1])
-    return jnp.stack([r, g, b], axis=-1)
 
 
 def init_state(out_height: int, out_width: int) -> TAAState:
     zero = jnp.zeros((out_height, out_width, 3), jnp.float32)
-    return TAAState(history=zero, packed=_pack_rgb16(zero))
+    return TAAState(history=zero)
 
 
 def _catmull_rom_sample(img, y, x):
@@ -129,35 +110,10 @@ def _catmull_rom_sample(img, y, x):
     return jnp.maximum(acc, 0.0)
 
 
-def _bilinear_history(packed, y, x):
-    """Bilinear history resample from the f16-packed mirror (8 B rows):
-    4 taps from a 16 MB source. The small source stays inside XLA's
-    scoped gather memory, where these fetches run ~5x faster — a wider
-    quad-packed single-gather variant was tried and measured neutral
-    (gather cost scales with bytes), while quadrupling the source's
-    scoped-memory footprint."""
-    h, w = packed.shape[0], packed.shape[1]
-    y0 = jnp.floor(y)
-    x0 = jnp.floor(x)
-    fy = (y - y0)[..., None]
-    fx = (x - x0)[..., None]
-    y0i = jnp.clip(y0.astype(jnp.int32), 0, h - 1)
-    y1i = jnp.clip(y0i + 1, 0, h - 1)
-    x0i = jnp.clip(x0.astype(jnp.int32), 0, w - 1)
-    x1i = jnp.clip(x0i + 1, 0, w - 1)
-    flat = packed.reshape(-1, 2)
-    c00 = _unpack_rgb16(flat[y0i * w + x0i])
-    c01 = _unpack_rgb16(flat[y0i * w + x1i])
-    c10 = _unpack_rgb16(flat[y1i * w + x0i])
-    c11 = _unpack_rgb16(flat[y1i * w + x1i])
-    return (c00 * (1 - fx) + c01 * fx) * (1 - fy) \
-        + (c10 * (1 - fx) + c11 * fx) * fy
-
-
 def _separable_bilinear(img, y, x):
     """Bilinear resample on a SEPARABLE coordinate grid (per-axis 1-D
     coords): two single-axis takes — contiguous row reads XLA handles
-    cheaply — instead of 4 flat 2-D gathers (~15 ms/frame at 1080p). Valid
+    cheaply — instead of 4 flat 2-D gathers. Valid
     whenever the sample positions are an axis-aligned affine map of the
     output grid (uniform scale + global jitter shift), which is exactly
     the current-frame resample's case."""
@@ -218,22 +174,11 @@ def upscale(state: TAAState, color, motion, jitter, out_h: int, out_w: int,
         * jnp.ones((1, out_w), jnp.float32)
     px = jnp.arange(out_w, dtype=jnp.float32)[None, :] \
         * jnp.ones((out_h, 1), jnp.float32)
-    from . import intersect
-    window_ok = None
-    if intersect.pallas_enabled() and cfg.history_filter != "catmull":
-        # Tile-windowed Pallas reprojection (ops/reproject_pallas.py) on
-        # the full-f32 history — bilinear weights cannot act on packed
-        # f16 bits, and the kernel streams its window anyway.
-        from . import reproject_pallas as rp
-        hist, window_ok = rp.reproject_packed(
-            state.history, motion_up, "bilinear",
-            interpret=(intersect.BACKEND == "interpret"))
-    elif cfg.history_filter == "catmull":
+    if cfg.history_filter == "catmull":
         hist = _catmull_rom_sample(state.history, py + motion_up[..., 1],
                                    px + motion_up[..., 0])
     else:
-        hist = _bilinear_history(state.packed, py + motion_up[..., 1],
-                                 px + motion_up[..., 0])
+        hist, _ = reproject(state.history, motion_up, cfg.history_filter)
 
     # Neighborhood variance clipping in the current frame (render res
     # neighborhood, evaluated at output res via the upsampled image).
@@ -263,10 +208,6 @@ def upscale(state: TAAState, color, motion, jitter, out_h: int, out_w: int,
                  & ((py + motion_up[..., 1]) <= out_h - 1)
                  & ((px + motion_up[..., 0]) >= 0)
                  & ((px + motion_up[..., 0]) <= out_w - 1))
-    if window_ok is not None:
-        # Residuals outside the reprojection kernel's tap window refresh
-        # from the current frame (same policy as out-of-bounds).
-        in_bounds = in_bounds & window_ok
     alpha = cfg.blend_alpha * (0.25 + 0.75 * sample_w)
     if confidence is not None:
         conf_up = post.resize_bilinear(confidence[..., None], out_h,
@@ -274,4 +215,4 @@ def upscale(state: TAAState, color, motion, jitter, out_h: int, out_w: int,
         alpha = jnp.clip(alpha * (1.0 + 3.0 * (1.0 - conf_up)), 0.0, 1.0)
     alpha = jnp.where(in_bounds & ~reset, alpha, 1.0)[..., None]
     out = m.lerp(hist_clipped, up, alpha)
-    return TAAState(history=out, packed=_pack_rgb16(out)), out
+    return TAAState(history=out), out

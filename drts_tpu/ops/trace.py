@@ -27,7 +27,7 @@ def _where_nd(mask, a, b):
                      a, b)
 
 
-def _closest_hit(scene, origin, direction, t_min, t_max, block_size, accel):
+def _closest_hit(scene, origin, direction, t_min, t_max, block_size):
     """Spheres + mesh instances, merged by closest t. Returns
     (SphereHit-with-combined-index, TriHit | None)."""
     if scene.center.shape[0] == 0:
@@ -41,8 +41,7 @@ def _closest_hit(scene, origin, direction, t_min, t_max, block_size, accel):
     else:
         hit = intersect.intersect_spheres(origin, direction, t_min, t_max,
                                           scene.center, scene.radius,
-                                          block_size, attributes=False,
-                                          accel=accel)
+                                          block_size, attributes=False)
     if scene.mesh is None:
         return hit, None
     mi = scene.mesh_instances
@@ -108,7 +107,7 @@ def _surface_of(scene, hit, tri, ray_direction, table):
 
 
 def trace_scene(scene, origin, direction, t_min, t_max,
-                block_size: int = 16384, accel=None, table=None,
+                block_size: int = 16384, table=None,
                 alpha_rounds: int = 0) -> scene_mod.HitSurface:
     """Closest-hit against the whole scene -> shading-ready HitSurface.
 
@@ -120,7 +119,7 @@ def trace_scene(scene, origin, direction, t_min, t_max,
     if table is None:
         table = scene_mod.object_table(scene)
     hit, tri = _closest_hit(scene, origin, direction, t_min, t_max,
-                            block_size, accel)
+                            block_size)
     surf = _surface_of(scene, hit, tri, direction, table)
 
     for _ in range(alpha_rounds):
@@ -136,7 +135,7 @@ def trace_scene(scene, origin, direction, t_min, t_max,
         t_max2 = jnp.where(rejected,
                            jnp.broadcast_to(t_max, rejected.shape), -1.0)
         hit2, tri2 = _closest_hit(scene, origin, direction, t_min2, t_max2,
-                                  block_size, accel)
+                                  block_size)
         surf2 = _surface_of(scene, hit2, tri2, direction, table)
         surf = _merge_surface(rejected, surf2, surf)
     return surf
@@ -148,7 +147,7 @@ def _merge_surface(mask, a, b):
 
 
 def occluded_scene(scene, origin, direction, max_dist, exclude_index,
-                   block_size: int, accel=None):
+                   block_size: int):
     """Conservative any-hit visibility against spheres AND mesh instances
     (RAB_GetConservativeVisibility — alpha-tested surfaces count as
     occluders, matching the reference's conservative mode)."""
@@ -158,7 +157,7 @@ def occluded_scene(scene, origin, direction, max_dist, exclude_index,
         occ = intersect.intersect_spheres_any(
             origin, direction, jnp.zeros(max_dist.shape), max_dist,
             scene.center, scene.radius, block_size,
-            exclude_index=exclude_index, accel=accel)
+            exclude_index=exclude_index)
     if scene.mesh is not None:
         mi = scene.mesh_instances
         occ = occ | trimesh.intersect_instances_any(

@@ -1,6 +1,6 @@
 """Triangle-mesh intersection with instancing: the general-geometry path.
 
-TPU-native analogue of the reference's BLAS/TLAS triangle pipeline
+Analogue of the reference's BLAS/TLAS triangle pipeline
 (/root/reference/Source/RaytracingHelpers.ixx:28-105 geometry/instance
 descs; device-side vertex fetch + interpolation in
 Shaders/RaytracingHelpers.hlsli:57-133 ``CastRay``). The demo scene runs on
@@ -9,54 +9,34 @@ capability parity for arbitrary triangle geometry:
 
 - one shared mesh (the reference instances a single geosphere BLAS,
   Scene.ixx:225-284) with per-instance rigid transforms,
-- a two-level test: instance bounding-sphere cull, then Möller-Trumbore
-  over Morton-ordered triangle chunks in object space — dense masked
-  sweeps, the same vector-friendly shape as the sphere kernel,
+- a two-level test: a loop over instances with a bounding-sphere cull,
+  then Möller-Trumbore over Morton-ordered triangle blocks in object
+  space — dense masked sweeps,
 - barycentric attribute interpolation (normals, UVs, tangents) matching
   HitInfo::Initialize (Shaders/HitInfo.hlsli:63-80).
 
-This XLA formulation is the reference implementation; a Pallas variant can
-adopt the sphere kernel's layout when triangle content becomes a hot path.
+Every ray is tested against every instance's triangles (no traversal
+structure yet), so cost grows with instances x faces.
 """
 
 from __future__ import annotations
 
-import os as _os
-
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
+from ..utils import struct
 
 from ..utils import math as m
 
 INF = jnp.float32(jnp.inf)
-
-# Instance-coherence ray reorder before the Pallas closest-hit kernel
-# (see _pack_for_mesh_kernel sort_key). DRTS_MESH_SORT=0 for A/B.
-MESH_SORT = _os.environ.get("DRTS_MESH_SORT", "1") != "0"
-
-# Candidate-iteration closest hit (front-to-back bound enumeration +
-# dense shared-BLAS sweeps) instead of the serial per-block instance walk.
-# DRTS_MESH_CAND: 0 = serial kernel, 1 = multi-launch candidate loop,
-# 2 = fused single-launch kernel (per-block early exit; the scan cost of
-# the multi-launch form repeats per host iteration). DRTS_MESH_CAND_ITERS
-# overrides the candidate count before the exact backstop kernel takes
-# the stragglers.
-MESH_CAND = int(_os.environ.get("DRTS_MESH_CAND", "1"))
-# 3 measured best on the demo workload (tess-4 geosphere x 438, 8
-# bounces, TPU v5e: iters 3 -> 3.95 Mray/s vs 6 -> 3.70): most lanes
-# resolve within 2 candidates and the exact serial backstop absorbs the
-# stragglers more cheaply than three more dense candidate rounds.
-MESH_CAND_ITERS = int(_os.environ.get("DRTS_MESH_CAND_ITERS", "3"))
 
 
 @struct.dataclass
 class TriMesh:
     """Shared triangle mesh, SoA (the Mesh vertex/index buffers,
     Source/Model.ixx:45). Faces are stored in Morton (centroid) order —
-    make_mesh permutes them at build — so the Pallas kernel's packed face
-    position IS the face index (ops/trimesh_pallas.py)."""
+    make_mesh permutes them at build — so each face block of the sweep
+    covers a compact patch of the surface."""
     positions: jnp.ndarray  # (V, 3)
     normals: jnp.ndarray    # (V, 3)
     uvs: jnp.ndarray        # (V, 2)
@@ -67,101 +47,38 @@ class TriMesh:
     e1: jnp.ndarray         # (F, 3) v1 - v0
     e2: jnp.ndarray         # (F, 3) v2 - v0
     bound_radius: jnp.ndarray  # scalar: mesh-space bounding radius
-    # BLAS tables for the Pallas kernel (built once per mesh): padded
-    # Morton-ordered triangle rows + per-chunk object-space bounds.
-    tri_tbl: jnp.ndarray = None     # (F_pad, 9) [v0 e1 e2]
-    tri_bounds: jnp.ndarray = None  # (4, C_pad)
-    n_chunks: int = struct.field(pytree_node=False, default=0)
-    # Radius of the largest origin-centered ball guaranteed to lie INSIDE
-    # the mesh (0 when the mesh is open / origin is outside — disables the
-    # guaranteed-hit tmax clamp in the instanced Pallas path). Build-time
-    # validated: closed 2-manifold + origin-inside + exact point-triangle
-    # distance (_inscribed_radius). Static: gates the pre-pass at trace
-    # time without a traced scalar.
-    inscribed_radius: float = struct.field(pytree_node=False, default=0.0)
     # Optional per-vertex motion (V, 3): previous - current OBJECT-space
     # position per vertex (deforming meshes; the reference's optional
     # vertex-motion G-buffer path, GBufferGeneration.hlsl:62-91
     # CalculateMotionVector meshMotionVectors). None = rigid.
     vertex_motion: jnp.ndarray = None
-    # Build-time convexity verdict + static object-space bounding radius:
-    # gates the Pallas kernels' back-facing-chunk cull (a convex closed
-    # mesh's closest hit from an outside origin is always front-facing;
-    # see trimesh_pallas.MESH_CONV). Static so the cull compiles away for
-    # non-convex meshes.
-    convex: bool = struct.field(pytree_node=False, default=False)
-    local_radius: float = struct.field(pytree_node=False, default=0.0)
 
 
-def _inscribed_radius(v0, e1, e2, faces) -> float:
-    """Largest r such that the origin-centered ball of radius r lies inside
-    the mesh — the guarantee behind the instanced-path tmax clamp: a ray
-    segment passing through instance i's inscribed ball MUST hit instance
-    i's surface before exiting its bounding sphere. Returns 0 (clamp
-    disabled) unless the mesh is a closed oriented 2-manifold with the
-    origin inside. Build-time numpy, O(F)."""
-    f = faces.shape[0]
-    if f == 0:
-        return 0.0
-    # Closed oriented manifold: every directed edge appears exactly once
-    # and pairs with its reverse.
-    de = np.concatenate([faces[:, [0, 1]], faces[:, [1, 2]],
-                         faces[:, [2, 0]]])
-    key = de[:, 0].astype(np.int64) * (de.max() + 1) + de[:, 1]
-    rkey = de[:, 1].astype(np.int64) * (de.max() + 1) + de[:, 0]
-    if len(np.unique(key)) != len(key):
-        return 0.0
-    if not np.isin(rkey, key).all():
-        return 0.0
-    # Origin inside: crossing parity along an arbitrary direction.
-    d = np.array([0.57735027, 0.577350029, 0.5773504], np.float64)
-    pv = np.cross(d, e2.astype(np.float64))
-    det = np.einsum("fi,fi->f", pv, e1.astype(np.float64))
-    ok = np.abs(det) > 1e-12
-    inv = np.where(ok, 1.0 / np.where(ok, det, 1.0), 0.0)
-    tv = -v0.astype(np.float64)
-    u = np.einsum("fi,fi->f", tv, pv) * inv
-    qv = np.cross(tv, e1.astype(np.float64))
-    vbar = qv @ d * inv
-    t = np.einsum("fi,fi->f", qv, e2.astype(np.float64)) * inv
-    crossings = ok & (u >= 0) & (vbar >= 0) & (u + vbar <= 1) & (t > 0)
-    if int(crossings.sum()) % 2 == 0:
-        return 0.0
-    # Exact origin-to-triangle distance: min over the interior critical
-    # point (when inside the bary domain) and the three clamped edges.
-    v0d = v0.astype(np.float64)
-    e1d = e1.astype(np.float64)
-    e2d = e2.astype(np.float64)
-    a = np.einsum("fi,fi->f", e1d, e1d)
-    b = np.einsum("fi,fi->f", e1d, e2d)
-    c = np.einsum("fi,fi->f", e2d, e2d)
-    dd = np.einsum("fi,fi->f", e1d, v0d)
-    e = np.einsum("fi,fi->f", e2d, v0d)
-    det2 = a * c - b * b
-    good = det2 > 1e-18
-    s = np.where(good, (b * e - c * dd) / np.where(good, det2, 1.0), -1.0)
-    tt = np.where(good, (b * dd - a * e) / np.where(good, det2, 1.0), -1.0)
-    inside = good & (s >= 0) & (tt >= 0) & (s + tt <= 1)
-    p_in = v0d + s[:, None] * e1d + tt[:, None] * e2d
-    d2_in = np.where(inside, np.einsum("fi,fi->f", p_in, p_in), np.inf)
+def _morton3(x: np.ndarray) -> np.ndarray:
+    """30-bit Morton code from (N, 3) integer coordinates in [0, 1024)."""
+    def spread(v):
+        v = v.astype(np.uint64) & 0x3FF
+        v = (v | (v << 16)) & 0x030000FF
+        v = (v | (v << 8)) & 0x0300F00F
+        v = (v | (v << 4)) & 0x030C30C3
+        v = (v | (v << 2)) & 0x09249249
+        return v
+    return (spread(x[:, 0]) | (spread(x[:, 1]) << 1)
+            | (spread(x[:, 2]) << 2))
 
-    def edge_d2(av, dv):
-        dvdv = np.einsum("fi,fi->f", dv, dv)
-        tcl = np.clip(-np.einsum("fi,fi->f", av, dv)
-                      / np.maximum(dvdv, 1e-18), 0.0, 1.0)
-        p = av + tcl[:, None] * dv
-        return np.einsum("fi,fi->f", p, p)
 
-    d2 = np.minimum(d2_in, edge_d2(v0d, e1d))
-    d2 = np.minimum(d2, edge_d2(v0d, e2d))
-    d2 = np.minimum(d2, edge_d2(v0d + e1d, e2d - e1d))
-    return float(max(np.sqrt(d2.min()) * (1.0 - 1e-5), 0.0))
+def morton_face_order(v0, e1, e2) -> np.ndarray:
+    """(F,) face permutation sorting triangle centroids along a Morton
+    curve (host-side, once per mesh)."""
+    cent = v0 + (e1 + e2) / 3.0
+    lo = cent.min(axis=0)
+    span = np.maximum(cent.max(axis=0) - lo, 1e-9)
+    quant = np.clip((cent - lo) / span * 1023.0, 0, 1023).astype(np.uint64)
+    return np.argsort(_morton3(quant), kind="stable").astype(np.int32)
 
 
 def make_mesh(positions, normals, uvs, faces, tangents=None,
               vertex_motion=None) -> TriMesh:
-    from . import trimesh_pallas as tp
-
     positions = jnp.asarray(positions, jnp.float32)
     faces = jnp.asarray(faces, jnp.int32)
     if tangents is None:
@@ -173,25 +90,16 @@ def make_mesh(positions, normals, uvs, faces, tangents=None,
     v1 = positions[faces[:, 1]]
     v2 = positions[faces[:, 2]]
     e1, e2 = v1 - v0, v2 - v0
-    order, tri_tbl, tri_bounds, n_chunks, convex = tp.build_mesh_tables(
-        np.asarray(v0), np.asarray(e1), np.asarray(e2))
-    order_j = jnp.asarray(order)
-    r_ins = _inscribed_radius(np.asarray(v0), np.asarray(e1),
-                              np.asarray(e2), np.asarray(faces))
+    order = jnp.asarray(morton_face_order(np.asarray(v0), np.asarray(e1),
+                                          np.asarray(e2)))
     return TriMesh(
         positions=positions,
         normals=jnp.asarray(normals, jnp.float32),
         uvs=jnp.asarray(uvs, jnp.float32),
         tangents=jnp.asarray(tangents, jnp.float32),
-        faces=faces[order_j],
-        v0=v0[order_j], e1=e1[order_j], e2=e2[order_j],
+        faces=faces[order],
+        v0=v0[order], e1=e1[order], e2=e2[order],
         bound_radius=jnp.max(m.length(positions)),
-        tri_tbl=jnp.asarray(tri_tbl), tri_bounds=jnp.asarray(tri_bounds),
-        n_chunks=n_chunks,
-        inscribed_radius=r_ins,
-        convex=convex,
-        local_radius=float(np.linalg.norm(np.asarray(positions),
-                                          axis=-1).max()),
         vertex_motion=(None if vertex_motion is None
                        else jnp.asarray(vertex_motion, jnp.float32)))
 
@@ -223,9 +131,14 @@ def _moller_trumbore(o, d, v0, e1, e2, t_min, t_max, eps=1e-8):
 
 
 def intersect_mesh(origin, direction, t_min, t_max, mesh: TriMesh,
-                   ray_block: int = 1024, face_block: int = 256):
+                   ray_block: int = 65536, face_block: int = 512):
     """Closest-hit against one mesh in its own space. Shapes as in
-    ops/intersect.intersect_spheres. Returns (t, face, u, v)."""
+    ops/intersect.intersect_spheres. Returns (t, face, u, v).
+
+    Rays go in blocks of `ray_block`, faces in blocks of `face_block`
+    (clamped to the mesh): each step tests a (ray block x face block)
+    tile, so the step count, not the tile, is what grows with the scene.
+    """
     lead = origin.shape[:-1]
     n = int(np.prod(lead)) if lead else 1
     o = origin.reshape(n, 3)
@@ -234,18 +147,20 @@ def intersect_mesh(origin, direction, t_min, t_max, mesh: TriMesh,
     tmax = jnp.broadcast_to(t_max, lead).reshape(n)
 
     f = mesh.v0.shape[0]
+    face_block = min(face_block, f)
     fpad = (-f) % face_block
+    # Padded faces are degenerate (zero edges): det = 0, never hit.
     v0 = jnp.pad(mesh.v0, ((0, fpad), (0, 0)))
     e1 = jnp.pad(mesh.e1, ((0, fpad), (0, 0)))
     e2 = jnp.pad(mesh.e2, ((0, fpad), (0, 0)))
     nf = f + fpad
 
+    ray_block = min(ray_block, n)
     rpad = (-n) % ray_block
     o = jnp.pad(o, ((0, rpad), (0, 0)))
     d = jnp.pad(d, ((0, rpad), (0, 0)), constant_values=1.0)
     tmin = jnp.pad(tmin, (0, rpad))
     tmax = jnp.pad(tmax, (0, rpad), constant_values=-1.0)
-    nr = n + rpad
 
     def ray_blk(carry_blk):
         ob, db, tminb, tmaxb = carry_blk
@@ -268,16 +183,15 @@ def intersect_mesh(origin, direction, t_min, t_max, mesh: TriMesh,
                     jnp.where(closer, ub, best_u),
                     jnp.where(closer, vb, best_v))
 
-        init = (jnp.full((ray_block,), INF), jnp.zeros((ray_block,),
-                                                       jnp.int32),
-                jnp.zeros((ray_block,)), jnp.zeros((ray_block,)))
+        b = ob.shape[0]
+        init = (jnp.full((b,), INF), jnp.zeros((b,), jnp.int32),
+                jnp.zeros((b,)), jnp.zeros((b,)))
         return jax.lax.fori_loop(0, nf // face_block, face_blk, init)
 
     blocks = (o.reshape(-1, ray_block, 3), d.reshape(-1, ray_block, 3),
               tmin.reshape(-1, ray_block), tmax.reshape(-1, ray_block))
     if blocks[0].shape[0] == 1:
-        out = ray_blk(jax.tree.map(lambda x: x[0], blocks))
-        t, face, u, v = out
+        t, face, u, v = ray_blk(jax.tree.map(lambda x: x[0], blocks))
     else:
         _, out = jax.lax.scan(lambda _, b: (None, ray_blk(b)), None, blocks)
         t, face, u, v = (x.reshape(-1) for x in out)
@@ -286,270 +200,73 @@ def intersect_mesh(origin, direction, t_min, t_max, mesh: TriMesh,
     return t, face, u[:n].reshape(lead), v[:n].reshape(lead)
 
 
-def intersect_instances(origin, direction, t_min, t_max, mesh: TriMesh,
-                        inst_position, inst_rotation, inst_scale,
-                        **kw) -> TriHit:
-    """Two-level: per instance, cull by bounding sphere, transform the ray
-    to object space, test triangles, keep the closest (the TLAS->BLAS
-    dispatch, RaytracingHelpers.hlsli TraceRay analogue). On TPU (or under
-    BACKEND='interpret') this runs the Pallas instanced-mesh kernel
-    (ops/trimesh_pallas.py); the XLA sweep below is the portable
-    reference path."""
-    from . import intersect
-    if intersect.pallas_enabled() and mesh.tri_tbl is not None:
-        return _intersect_instances_pallas(origin, direction, t_min, t_max,
-                                           mesh, inst_position,
-                                           inst_rotation, inst_scale)
-    lead = origin.shape[:-1]
-    best = TriHit(hit=jnp.zeros(lead, bool),
-                  t=jnp.full(lead, INF),
+def _instance_step(best: TriHit, i, origin, direction, t_min, t_max,
+                   mesh: TriMesh, inst_position, inst_rotation, inst_scale,
+                   **kw) -> TriHit:
+    """Fold instance i into the running closest hit."""
+    # Bounding-sphere early-out: rays that cannot reach this instance's
+    # bound closer than their current best hit get a dead t-range.
+    oc = origin - inst_position[i]
+    b_q = m.dot(oc, direction)
+    r_w = mesh.bound_radius * inst_scale[i]
+    c_q = m.dot(oc, oc) - r_w * r_w
+    disc = b_q * b_q - c_q
+    t_near = -b_q - jnp.sqrt(jnp.maximum(disc, 0.0))
+    reachable = (disc > 0.0) & (t_near <= jnp.minimum(t_max, best.t)) \
+        & ((-b_q + jnp.sqrt(jnp.maximum(disc, 0.0))) >= t_min)
+    t_max_i = jnp.where(reachable, jnp.minimum(t_max, best.t), t_min - 1.0)
+
+    inv_rot = m.quat_conj(inst_rotation[i])
+    o_l = m.quat_rotate(inv_rot, oc) / inst_scale[i]
+    # Unnormalized d_l keeps t in world units.
+    d_l = m.quat_rotate(inv_rot, direction) / inst_scale[i]
+    t, face, u, v = intersect_mesh(o_l, d_l, t_min, t_max_i, mesh, **kw)
+    closer = t < best.t
+    return TriHit(
+        hit=best.hit | (closer & jnp.isfinite(t)),
+        t=jnp.where(closer, t, best.t),
+        face=jnp.where(closer, face, best.face),
+        instance=jnp.where(closer, i, best.instance),
+        barycentrics=jnp.where(closer[..., None],
+                               jnp.stack([u, v], axis=-1),
+                               best.barycentrics))
+
+
+def _no_hit(lead) -> TriHit:
+    return TriHit(hit=jnp.zeros(lead, bool), t=jnp.full(lead, INF),
                   face=jnp.zeros(lead, jnp.int32),
                   instance=jnp.zeros(lead, jnp.int32),
                   barycentrics=jnp.zeros(lead + (2,)))
-    k = inst_position.shape[0]
-    for i in range(k):  # instance counts on the triangle path are small
-        # Bounding-sphere early-out: rays that cannot reach this instance's
-        # bound closer than their current best hit get a dead t-range, so
-        # the triangle sweep's masked lanes (and its block skips) drop them.
-        oc = origin - inst_position[i]
-        b_q = m.dot(oc, direction)
-        r_w = mesh.bound_radius * inst_scale[i]
-        c_q = m.dot(oc, oc) - r_w * r_w
-        disc = b_q * b_q - c_q
-        t_near = -b_q - jnp.sqrt(jnp.maximum(disc, 0.0))
-        reachable = (disc > 0.0) & (t_near <= jnp.minimum(t_max, best.t)) \
-            & ((-b_q + jnp.sqrt(jnp.maximum(disc, 0.0))) >= t_min)
-        t_max_i = jnp.where(reachable, jnp.minimum(t_max, best.t),
-                            t_min - 1.0)
-
-        inv_rot = m.quat_conj(inst_rotation[i])
-        o_l = m.quat_rotate(inv_rot, origin - inst_position[i]) \
-            / inst_scale[i]
-        d_l = m.quat_rotate(inv_rot, direction) / inst_scale[i]
-        # Unnormalized d_l keeps t in world units.
-        t, face, u, v = intersect_mesh(o_l, d_l, t_min, t_max_i, mesh, **kw)
-        closer = t < best.t
-        best = TriHit(
-            hit=best.hit | (closer & jnp.isfinite(t)),
-            t=jnp.where(closer, t, best.t),
-            face=jnp.where(closer, face, best.face),
-            instance=jnp.where(closer, i, best.instance),
-            barycentrics=jnp.where(closer[..., None],
-                                   jnp.stack([u, v], axis=-1),
-                                   best.barycentrics))
-    return best
 
 
-def _bounds_prepass(origin, direction, t_min, t_max, mesh: TriMesh,
-                    inst_position, inst_scale, any_hit: bool = False):
-    """Per-lane t-range tightening BEFORE the instanced-mesh kernel, using
-    the cheap analytic-sphere sweeps over the M instance bounds (the
-    TLAS-level work RT cores do per ray; our kernel's culls are per ray
-    BLOCK, so one stray lane with an unbounded range forces the whole
-    block to sweep all instances — the measured mesh-path pathology):
+def intersect_instances(origin, direction, t_min, t_max, mesh: TriMesh,
+                        inst_position, inst_rotation, inst_scale,
+                        **kw) -> TriHit:
+    """Two-level closest hit: per instance, cull by bounding sphere,
+    transform the ray to object space, test triangles, keep the closest
+    (the TLAS->BLAS dispatch, RaytracingHelpers.hlsli TraceRay analogue).
+    Instances run in order under one `lax.fori_loop`, so the program size
+    does not grow with the instance count."""
+    t_min = jnp.broadcast_to(t_min, origin.shape[:-1])
+    t_max = jnp.broadcast_to(t_max, origin.shape[:-1])
 
-    1. kill: a lane whose segment misses every instance bounding sphere
-       cannot hit the mesh — it gets a dead range (tmax < tmin), shrinking
-       the kernel's live set and its tmax_max/t_done culls.
-    2. clamp (closest-hit only, inscribed_radius > 0): a lane passing
-       through instance i's inscribed ball is GUARANTEED a surface hit
-       before exiting i's bounding sphere, so tmax clamps to
-       t_entry + 2 r_bound — the per-lane early-out RT-core traversal gets
-       from front-to-back BVH order.
+    def body(i, best):
+        return _instance_step(best, i, origin, direction, t_min, t_max,
+                              mesh, inst_position, inst_rotation, inst_scale,
+                              **kw)
 
-    Returns (tightened t_max, candidate instance id) — the candidate is
-    the ray's nearest bounding-sphere hit (M = miss), the sort key for
-    the instance-coherence reorder (see _intersect_instances_pallas).
-    """
-    from . import intersect
-    lead = origin.shape[:-1]
-    mcount = inst_position.shape[0]
-    t_min_b = jnp.broadcast_to(t_min, lead)
-    t_max_b = jnp.broadcast_to(t_max, lead)
-    r_bound = mesh.bound_radius * inst_scale
-    if any_hit:
-        reach = intersect.intersect_spheres_any(
-            origin, direction, jnp.maximum(t_min_b, 0.0), t_max_b,
-            inst_position, r_bound, 16384)
-        t_max_new = jnp.where(reach, t_max_b,
-                              jnp.minimum(t_min_b, 0.0) - 1.0)
-        return t_max_new, None
-    hit_b = intersect.intersect_spheres(origin, direction,
-                                        jnp.maximum(t_min_b, 0.0), t_max_b,
-                                        inst_position, r_bound, 16384,
-                                        attributes=False)
-    t_max_new = jnp.where(hit_b.hit, t_max_b,
-                          jnp.minimum(t_min_b, 0.0) - 1.0)
-    cand = jnp.where(hit_b.hit, hit_b.index, mcount)
-    if mesh.inscribed_radius <= 0.0:
-        return t_max_new, cand
-    r_ins = mesh.inscribed_radius * inst_scale
-    hit_i = intersect.intersect_spheres(origin, direction, t_min_b,
-                                        t_max_new, inst_position, r_ins,
-                                        16384, attributes=False)
-    clamp = hit_i.t + 2.0 * r_bound[hit_i.index] * 1.0001 + 1e-4
-    t_max_new = jnp.where(hit_i.hit, jnp.minimum(t_max_new, clamp),
-                          t_max_new)
-    return t_max_new, cand
-
-
-def _pack_for_mesh_kernel(origin, direction, t_min, t_max, mesh,
-                          inst_position, inst_rotation, inst_scale,
-                          sort_key=None):
-    """Shared preamble of both Pallas mesh entries (closest-hit and
-    any-hit): screen-tile ray packing, live-centroid sort origin, and the
-    per-frame TLAS tables. Returns (rays, n, unflat, inst_tbl,
-    inst_bounds, order, n_ic, interp).
-
-    sort_key (optional, lead-shaped i32): reorder rays so equal keys are
-    adjacent before blocking — the TPU analogue of NVIDIA SER's
-    reorder-by-hit. Keyed by the bounds pre-pass's nearest-instance
-    candidate, a RAY_BLOCK's lanes then agree on the instance chunks they
-    need, so the kernel's per-block TLAS culls skip the rest (an
-    incoherent bounce block otherwise forces a sweep of every chunk its
-    scattered lanes touch). `unflat` undoes the permutation."""
-    from . import intersect
-    from . import intersect_pallas as ip
-    from . import trimesh_pallas as tp
-
-    lead = origin.shape[:-1]
-    interp = intersect.BACKEND == "interpret"
-    tiled = intersect._tileable(lead)
-    if tiled:
-        o = intersect._tile_order(origin)
-        d = intersect._tile_order(direction)
-        tmn = intersect._tile_order(jnp.broadcast_to(t_min, lead))
-        tmx = intersect._tile_order(jnp.broadcast_to(t_max, lead))
-        key = (intersect._tile_order(sort_key)
-               if sort_key is not None else None)
-    else:
-        n0 = 1
-        for s in lead:
-            n0 *= s
-        o = origin.reshape(n0, 3)
-        d = direction.reshape(n0, 3)
-        tmn = jnp.broadcast_to(t_min, lead).reshape(n0)
-        tmx = jnp.broadcast_to(t_max, lead).reshape(n0)
-        key = sort_key.reshape(n0) if sort_key is not None else None
-    if key is not None:
-        # Stable argsort keeps screen-tile locality within equal keys.
-        perm = jnp.argsort(key, stable=True).astype(jnp.int32)
-        o, d, tmn, tmx = o[perm], d[perm], tmn[perm], tmx[perm]
-    rays, n = ip.pack_rays(o, d, tmn, tmx)
-
-    # Near-to-far TLAS chunk order anchored at the live-ray origin
-    # centroid (the camera for primary blocks; the bounce surface cloud
-    # otherwise) — feeds the kernel's distance early-outs.
-    live = (tmx >= tmn).astype(jnp.float32)
-    cnt = jnp.maximum(jnp.sum(live), 1.0)
-    sort_origin = jnp.sum(o * live[:, None], axis=0) / cnt
-    inst_tbl, inst_bounds, order, n_ic = tp.make_inst_tables(
-        inst_position, inst_rotation, inst_scale, mesh.bound_radius,
-        sort_origin=sort_origin)
-
-    def unflat(x):
-        x = x[:n]
-        if key is not None:
-            x = jnp.zeros_like(x).at[perm].set(x, unique_indices=True)
-        if tiled:
-            return intersect._tile_unorder(x, *lead)
-        return x.reshape(lead)
-
-    return rays, unflat, inst_tbl, inst_bounds, order, n_ic, interp
+    return jax.lax.fori_loop(0, inst_position.shape[0], body,
+                             _no_hit(origin.shape[:-1]))
 
 
 def intersect_instances_any(origin, direction, t_min, t_max, mesh: TriMesh,
                             inst_position, inst_rotation, inst_scale):
     """Any-hit occlusion against instanced meshes (the mesh half of
     RAY_FLAG_ACCEPT_FIRST_HIT_AND_END_SEARCH visibility rays,
-    RTXDIAppBridge.hlsli:418-459). Runs the specialized Pallas any-hit
-    kernel (early-out once every live lane is blocked) when available;
-    portable fallback reuses the closest-hit sweep's hit bit."""
-    from . import intersect
-    if intersect.pallas_enabled() and mesh.tri_tbl is not None:
-        from . import trimesh_pallas as tp
-
-        t_max, _ = _bounds_prepass(origin, direction, t_min, t_max, mesh,
-                                   inst_position, inst_scale, any_hit=True)
-        rays, unflat, inst_tbl, inst_bounds, _, n_ic, interp = \
-            _pack_for_mesh_kernel(origin, direction, t_min, t_max, mesh,
-                                  inst_position, inst_rotation, inst_scale)
-        if MESH_CAND:
-            occ = tp.intersect_mesh_instances_any_cand(
-                rays, inst_tbl, inst_bounds, mesh.tri_bounds,
-                mesh.tri_tbl, n_ic, tp.INST_CHUNK, mesh.n_chunks,
-                mesh.tri_tbl.shape[0] // mesh.n_chunks,
-                iters=max(MESH_CAND_ITERS - 2, 2), interpret=interp)
-        else:
-            occ = tp.intersect_mesh_instances_any(
-                rays, inst_tbl, inst_bounds, mesh.tri_bounds,
-                mesh.tri_tbl, n_ic, tp.INST_CHUNK, mesh.n_chunks,
-                mesh.tri_tbl.shape[0] // mesh.n_chunks, interpret=interp)
-        return unflat(occ)
-
+    RTXDIAppBridge.hlsli:418-459): the closest-hit sweep's hit bit."""
     return intersect_instances(origin, direction, t_min, t_max, mesh,
                                inst_position, inst_rotation,
                                inst_scale).hit
-
-
-def _intersect_instances_pallas(origin, direction, t_min, t_max,
-                                mesh: TriMesh, inst_position,
-                                inst_rotation, inst_scale) -> TriHit:
-    """Pallas path: pack rays (screen-tile order when 2D, matching the
-    sphere kernel), run the instanced-mesh kernel, then recover exact
-    t/barycentrics for winners with one per-ray Moller-Trumbore
-    (trimesh_pallas.refine_hit)."""
-    from . import trimesh_pallas as tp
-    from ..models import scene as scene_mod
-
-    t_max, cand = _bounds_prepass(origin, direction, t_min, t_max, mesh,
-                                  inst_position, inst_scale)
-    rays, unflat, inst_tbl, inst_bounds, order, n_ic, interp = \
-        _pack_for_mesh_kernel(origin, direction, t_min, t_max, mesh,
-                              inst_position, inst_rotation, inst_scale,
-                              sort_key=None if not MESH_SORT else cand)
-    conv = bool(mesh.convex) and tp.MESH_CONV
-    conv_r = float(mesh.local_radius)
-    if MESH_CAND == 2:
-        t_p, face_p, inst_p = tp.intersect_mesh_instances_cand_fused(
-            rays, inst_tbl, inst_bounds, mesh.tri_bounds, mesh.tri_tbl,
-            n_ic, tp.INST_CHUNK, mesh.n_chunks,
-            mesh.tri_tbl.shape[0] // mesh.n_chunks,
-            iters=MESH_CAND_ITERS, interpret=interp, conv=conv,
-            conv_r=conv_r)
-    elif MESH_CAND:
-        t_p, face_p, inst_p = tp.intersect_mesh_instances_cand(
-            rays, inst_tbl, inst_bounds, mesh.tri_bounds, mesh.tri_tbl,
-            n_ic, tp.INST_CHUNK, mesh.n_chunks,
-            mesh.tri_tbl.shape[0] // mesh.n_chunks,
-            iters=MESH_CAND_ITERS, interpret=interp, conv=conv,
-            conv_r=conv_r)
-    else:
-        t_p, face_p, inst_p = tp.intersect_mesh_instances(
-            rays, inst_tbl, inst_bounds, mesh.tri_bounds, mesh.tri_tbl,
-            n_ic, tp.INST_CHUNK, mesh.n_chunks,
-            mesh.tri_tbl.shape[0] // mesh.n_chunks, interpret=interp,
-            conv=conv, conv_r=conv_r)
-    # Kernel instance ids are sorted-table positions; map back.
-    inst_p = jnp.maximum(order[jnp.minimum(inst_p, order.shape[0] - 1)], 0)
-
-    t_p = unflat(t_p)
-    f = mesh.v0.shape[0]
-    face_p = jnp.minimum(unflat(face_p), f - 1)
-    inst_p = jnp.minimum(unflat(inst_p), inst_position.shape[0] - 1)
-
-    mi = scene_mod.MeshInstances(
-        center=inst_position, rotation=inst_rotation,
-        prev_center=inst_position, prev_rotation=inst_rotation,
-        scale=inst_scale)
-    t_exact, u, v = tp.refine_hit(mesh, mi, origin, direction, t_p,
-                                  face_p, inst_p)
-    hit = jnp.isfinite(t_p) & jnp.isfinite(t_exact)
-    return TriHit(hit=hit,
-                  t=jnp.where(hit, t_exact, INF),
-                  face=face_p,
-                  instance=inst_p,
-                  barycentrics=jnp.stack([u, v], axis=-1))
 
 
 def interpolate_attributes(mesh: TriMesh, hit: TriHit, inst_rotation):

@@ -2,7 +2,7 @@
 
 The recipe (SURVEY.md §5.8): pick a 1-D mesh over all chips, annotate the
 frame buffers with row sharding, replicate scene/physics state, jit the
-whole frame function with those shardings, and let XLA insert the ICI
+whole frame function with those shardings, and let XLA insert the
 collectives (ppermute halos for the à-trous/bloom footprints, all-gathers
 at image assembly). No hand-written NCCL analogue exists or is needed.
 """

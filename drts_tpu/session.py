@@ -151,7 +151,6 @@ class Session:
             return "realloc"
         # Same shapes: keep state, reset temporal history next frame
         # (m_resetHistory semantics).
-        self.pipe.build_plan(self.host)
         self._pending_reset = True
         return "static"
 
@@ -180,24 +179,31 @@ class Session:
 
     # -- stepping -------------------------------------------------------------
 
+    def jitted_step(self):
+        """The jitted frame step: (state, pose, prev_pose, reset, dyn, dt)
+        -> (state, image)."""
+        pipe = self.pipe
+        # dt is a traced argument — closing over it would bake the FIRST
+        # call's timestep into the compiled step for the whole session
+        # (StepTimer-fed dt must actually reach the physics).
+        return jax.jit(lambda s, p, q, r, d, dt_: pipe.render_frame(
+            s, p, dt_, prev_pose=q, reset=r, dyn=d))
+
+    def step_args(self, pose=None, dt: float = 1.0 / 60.0, prev_pose=None):
+        """Arguments of jitted_step() for the next frame."""
+        if pose is None:
+            pose = self.default_pose()
+        return (self.state, pose,
+                prev_pose if prev_pose is not None else pose,
+                jnp.asarray(self._pending_reset), self.dyn, jnp.float32(dt))
+
     def step(self, pose: pipeline.CameraPose | None = None,
              dt: float = 1.0 / 60.0,
              prev_pose: pipeline.CameraPose | None = None):
         """Advance one frame; recompiles lazily after static changes."""
-        if pose is None:
-            pose = self.default_pose()
         if self._step is None:
-            pipe = self.pipe
-            # dt is a traced argument — closing over it would bake the
-            # FIRST call's timestep into the compiled step for the whole
-            # session (StepTimer-fed dt must actually reach the physics).
-            self._step = jax.jit(
-                lambda s, p, q, r, d, dt_: pipe.render_frame(
-                    s, p, dt_, prev_pose=q, reset=r, dyn=d))
-        reset = jnp.asarray(self._pending_reset)
+            self._step = self.jitted_step()
+        self.state, image = self._step(*self.step_args(pose, dt, prev_pose))
         self._pending_reset = False
-        self.state, image = self._step(
-            self.state, pose, prev_pose if prev_pose is not None else pose,
-            reset, self.dyn, jnp.float32(dt))
         self.frame_count += 1
         return image

@@ -3,9 +3,9 @@
 The reference persists only settings JSON (SURVEY.md §5.4); the temporal
 state that *functions* like a checkpoint (history textures, SHARC cache,
 reservoirs, physics world, frame counter) is exactly our FrameState pytree.
-On TPU this state must survive preemption (SURVEY.md §5.3 "elastic
-recovery" mapping), so the framework checkpoints the whole pytree with
-orbax and can resume mid-flight: the device-lost recovery analogue is
+A long render must survive preemption (SURVEY.md §5.3 "elastic recovery"
+mapping), so the framework writes the whole pytree's leaves to one .npz
+file and can resume mid-flight: the device-lost recovery analogue is
 ``restore() if exists else init_state()``.
 """
 
@@ -14,43 +14,26 @@ from __future__ import annotations
 import os
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 
 
 def save(state, path: str) -> None:
-    """Write the FrameState pytree (or any pytree) to `path` (a directory)
-    via orbax; falls back to npz if orbax is unavailable."""
-    try:
-        import orbax.checkpoint as ocp
-        with ocp.StandardCheckpointer() as ckptr:
-            ckptr.save(os.path.abspath(path), state, force=True)
-        return
-    except ImportError:
-        pass
-    flat, treedef = jax.tree.flatten(state)
-    np.savez(path + ".npz", *[np.asarray(x) for x in flat])
+    """Write the leaves of a pytree (a FrameState or any other) to
+    `path` + ".npz"."""
+    np.savez(path + ".npz", *[np.asarray(x) for x in jax.tree.leaves(state)])
 
 
 def restore(state_like, path: str):
-    """Restore a pytree with the structure/shapes of `state_like`.
-    Returns None if no checkpoint exists."""
-    abspath = os.path.abspath(path)
-    if os.path.isdir(abspath):
-        try:
-            import orbax.checkpoint as ocp
-            with ocp.StandardCheckpointer() as ckptr:
-                return ckptr.restore(abspath, state_like)
-        except ImportError:
-            pass
-    if os.path.exists(path + ".npz"):
-        data = np.load(path + ".npz")
-        flat, treedef = jax.tree.flatten(state_like)
-        restored = [data[f"arr_{i}"] for i in range(len(flat))]
-        import jax.numpy as jnp
-        restored = [jnp.asarray(r).astype(x.dtype)
-                    for r, x in zip(restored, flat)]
-        return jax.tree.unflatten(treedef, restored)
-    return None
+    """Restore a pytree with the structure/dtypes of `state_like` from
+    `path` + ".npz". Returns None if no checkpoint exists."""
+    if not os.path.exists(path + ".npz"):
+        return None
+    flat, treedef = jax.tree.flatten(state_like)
+    with np.load(path + ".npz") as data:
+        restored = [jnp.asarray(data[f"arr_{i}"]).astype(x.dtype)
+                    for i, x in enumerate(flat)]
+    return jax.tree.unflatten(treedef, restored)
 
 
 def save_rotating(state, dirpath: str) -> str:

@@ -1,9 +1,9 @@
 """Image I/O and quality metrics (host-side).
 
 Replaces the reference's DirectXTex loaders + swap-chain present
-(SURVEY.md §2.3 "DirectXTex / DirectXMesh" row): PNG output is written with
-a dependency-free encoder (zlib + struct); texture loading goes through PIL
-when available (gated — the environment bans new installs). SSIM implements
+(SURVEY.md §2.3 "DirectXTex / DirectXMesh" row): PNGs are written and
+read with a dependency-free codec (zlib + struct); resized texture loading
+goes through PIL when it is installed. SSIM implements
 the standard Wang et al. metric for the fidelity target in BASELINE.md.
 """
 
@@ -46,10 +46,67 @@ def write_png(path: str, image: np.ndarray) -> None:
         f.write(png)
 
 
+def read_png(path: str) -> np.ndarray:
+    """Decode an 8-bit, non-interlaced gray/RGB/RGBA PNG (what write_png
+    writes) to (H, W, C) uint8 without third-party packages."""
+    with open(path, "rb") as f:
+        data = f.read()
+    if data[:8] != b"\x89PNG\r\n\x1a\n":
+        raise ValueError(f"{path}: not a PNG")
+    pos, idat, header = 8, [], None
+    while pos < len(data):
+        n, tag = struct.unpack(">I4s", data[pos:pos + 8])
+        body = data[pos + 8:pos + 8 + n]
+        if tag == b"IHDR":
+            header = struct.unpack(">IIBBBBB", body)
+        elif tag == b"IDAT":
+            idat.append(body)
+        pos += 12 + n
+    w, h, depth, color_type, _, _, interlace = header
+    channels = {0: 1, 2: 3, 6: 4}.get(color_type)
+    if depth != 8 or channels is None or interlace:
+        raise ValueError(f"{path}: unsupported PNG (depth {depth}, color "
+                         f"type {color_type}, interlace {interlace})")
+    stride = w * channels
+    raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
+    raw = raw.reshape(h, stride + 1).astype(np.int32)
+    out = np.zeros((h, stride), np.int32)
+    for y in range(h):
+        kind, line = raw[y, 0], raw[y, 1:]
+        up = out[y - 1] if y else np.zeros(stride, np.int32)
+        if kind in (0, 2):
+            out[y] = (line + (up if kind == 2 else 0)) & 0xFF
+            continue
+        row = out[y]
+        for x in range(stride):        # filters that read the left pixel
+            left = row[x - channels] if x >= channels else 0
+            ul = up[x - channels] if x >= channels else 0
+            if kind == 1:
+                pred = left
+            elif kind == 3:
+                pred = (left + up[x]) >> 1
+            else:                      # 4: Paeth
+                pa, pb, pc = (abs(up[x] - ul), abs(left - ul),
+                              abs(left + up[x] - 2 * ul))
+                pred = left if pa <= pb and pa <= pc else (
+                    up[x] if pb <= pc else ul)
+            row[x] = (line[x] + pred) & 0xFF
+    return out.astype(np.uint8).reshape(h, w, channels)
+
+
 def load_image(path: str, size: int | None = None) -> np.ndarray | None:
     """Load an image as (H, W, 4) float32 in [0, 1]; optionally resized to
-    (size, size). Returns None when PIL is unavailable (textures then fall
-    back to material constants, like the reference with missing assets)."""
+    (size, size). PNGs at their own size decode without PIL (read_png);
+    anything else needs PIL and returns None when it is unavailable
+    (textures then fall back to material constants, like the reference
+    with missing assets)."""
+    if size is None and path.lower().endswith(".png"):
+        img = read_png(path).astype(np.float32) / 255.0
+        if img.shape[-1] == 1:
+            img = np.repeat(img, 3, axis=-1)
+        if img.shape[-1] == 3:
+            img = np.concatenate([img, np.ones_like(img[..., :1])], -1)
+        return img
     try:
         from PIL import Image
     except ImportError:
@@ -80,7 +137,7 @@ def read_exr(path: str) -> np.ndarray:
     """Minimal OpenEXR scanline reader: single-part, compression
     NONE/ZIPS/ZIP, HALF or FLOAT channels. Returns (H, W, 3) float32 RGB.
 
-    The TPU-native stand-in for DirectXTex's EXR path
+    The stand-in for DirectXTex's EXR path
     (/root/reference/Source/TextureHelpers.ixx:34-138) used by the demo
     scene's environment map (MyScene.ixx:95)."""
     with open(path, "rb") as f:

@@ -1,6 +1,6 @@
 """Vector / quaternion / frame math — the framework's core math module.
 
-TPU-native replacement for NVIDIA MathLib (``ml.hlsli``) used throughout the
+Replacement for NVIDIA MathLib (``ml.hlsli``) used throughout the
 reference (cited via SURVEY.md §2.3: ``Geometry::*``, ``Color::*``,
 ``Math::*`` in /root/reference/Shaders/Math.hlsli and Camera.hlsli).
 

@@ -1,10 +1,10 @@
 """Observability: scoped pass tracing, per-frame metrics, structured logs.
 
-TPU-native replacement for the reference's instrumentation (SURVEY.md §5.1,
+Replacement for the reference's instrumentation (SURVEY.md §5.1,
 §5.5): PIX scoped events (App.cpp:598) become jax.profiler trace
 annotations; the Streamline PCL latency markers and OutputDebugString
 logging become a structured per-frame metric dict + stdlib logging. Use
-``jax.profiler.start_trace`` around a frame window to capture a TPU
+``jax.profiler.start_trace`` around a frame window to capture a device
 timeline viewable in TensorBoard/XProf.
 """
 
@@ -61,7 +61,7 @@ class FrameMetrics:
 
 @contextlib.contextmanager
 def device_trace(log_dir: str):
-    """Capture an XLA/TPU profiler trace for a code region (the PIX GPU
+    """Capture a JAX profiler trace for a code region (the PIX GPU
     capture analogue)."""
     jax.profiler.start_trace(log_dir)
     try:

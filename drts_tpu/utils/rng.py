@@ -1,6 +1,6 @@
 """Stateless per-pixel RNG + low-discrepancy sequences.
 
-TPU-native replacement for MathLib ``Rng::Hash`` (seeded per pixel+frame in
+Replacement for MathLib ``Rng::Hash`` (seeded per pixel+frame in
 /root/reference/Shaders/Raytracing.hlsl:108 via ``Rng::Hash::Initialize``)
 and ``Sequence::Halton`` (/root/reference/Source/HaltonSampler.ixx:32-34).
 

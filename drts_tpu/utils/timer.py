@@ -1,6 +1,6 @@
 """Frame timing: fixed/variable timestep + FPS counter.
 
-TPU-native reimplementation of /root/reference/Source/StepTimer.ixx
+Reimplementation of the reference's Source/StepTimer.ixx
 (QPC-based fixed/variable timestep with FPS accounting): same semantics —
 variable step by default, optional fixed step with catch-up, elapsed
 clamping after stalls — host-side (this drives the render loop; the

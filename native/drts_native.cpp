@@ -1,12 +1,11 @@
-// drts_native: host-side runtime for the TPU path tracer.
+// drts_native: host-side runtime for the path tracer.
 //
 // Native (C++) replacements for the reference's host-side native
 // components (SURVEY.md §2.3): DirectXTK12's GeometricPrimitive geosphere
 // generator (used at /root/reference/Source/MyScene.ixx:56), DirectXMesh's
 // ComputeTangentFrame (MyScene.ixx:70), the MathLib Halton sequence
-// (HaltonSampler.ixx:32-34), the acceleration-structure build step
-// (cluster planning; the BLAS-build analogue of Scene.ixx:225-284), and a
-// PNG writer standing in for the DirectXTex/DirectXTK save path.
+// (HaltonSampler.ixx:32-34), and a PNG writer standing in for the
+// DirectXTex/DirectXTK save path.
 //
 // Exposed as a C ABI for ctypes (drts_tpu/native.py); the Python layer
 // falls back to numpy implementations when this library is absent, so the
@@ -187,41 +186,6 @@ void halton23(int count, int start, float* out) {
     for (uint64_t v = n; v; v /= 3) { f /= 3; r += f * (v % 3); }
     out[2 * i + 1] = static_cast<float>(r);
   }
-}
-
-// --- cluster plan (acceleration-structure build) --------------------------
-
-int cluster_plan(const float* pos, const float* radii, int k,
-                 float cell_size, int max_members, int32_t* member_out,
-                 int max_clusters) {
-  std::map<std::pair<int64_t, int64_t>, std::vector<int>> bins;
-  std::vector<std::vector<int>> clusters;
-  for (int i = 0; i < k; ++i) {
-    if (radii[i] > cell_size * 0.5f) {
-      clusters.push_back({i});
-      continue;
-    }
-    auto key = std::make_pair(
-        static_cast<int64_t>(std::floor(pos[3 * i] / cell_size)),
-        static_cast<int64_t>(std::floor(pos[3 * i + 2] / cell_size)));
-    bins[key].push_back(i);
-  }
-  for (auto& kv : bins) {
-    auto& members = kv.second;
-    for (size_t s = 0; s < members.size(); s += max_members) {
-      size_t e = std::min(members.size(), s + max_members);
-      clusters.emplace_back(members.begin() + s, members.begin() + e);
-    }
-  }
-  int c = static_cast<int>(clusters.size());
-  if (c > max_clusters) return -1;
-  for (int ci = 0; ci < c; ++ci) {
-    for (int mi = 0; mi < max_members; ++mi) {
-      member_out[ci * max_members + mi] =
-          mi < static_cast<int>(clusters[ci].size()) ? clusters[ci][mi] : -1;
-    }
-  }
-  return c;
 }
 
 // --- PNG writer (zlib) ----------------------------------------------------

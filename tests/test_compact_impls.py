@@ -22,7 +22,7 @@ def _scatter_reference(act, order_ids, cap, wave):
     return src, keep, pos, overflow
 
 
-@pytest.mark.parametrize("impl", ["blocked_onehot", "two_level"])
+@pytest.mark.parametrize("impl", ["blocked_sort", "two_level"])
 @pytest.mark.parametrize("ns,cap,wave,density", [
     (4096, 256, 0, 0.05),
     (4096, 256, 1, 0.2),     # spill wave
@@ -51,7 +51,7 @@ def test_src_table_builders_match_scatter(impl, ns, cap, wave, density):
     assert int(got[3]) == int(ref[3]), "overflow"
 
 
-@pytest.mark.parametrize("impl", ["blocked_onehot", "two_level"])
+@pytest.mark.parametrize("impl", ["blocked_sort", "two_level"])
 def test_trace_image_equal_across_impls(impl):
     """End-to-end: a small traced frame is identical under every
     compact_impl (the builder only changes HOW slots are assembled)."""

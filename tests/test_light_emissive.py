@@ -3,7 +3,7 @@
 Reference behavior (LightPreparation.hlsl:86-128): each emissive
 triangle's LightInfo radiance is the material emission scaled by a
 filtered (SampleGrad, triangle-covering footprint) average of its
-emissive map. Our TPU-native form (`light._face_emissive_avg`) computes
+emissive map. Our array form (`light._face_emissive_avg`) computes
 the exact UV-area average of the 32^2 emissive mip over each face's UV
 triangle — these tests pin its correctness with maps whose regional
 values make the expected average exact, plus a wrap-invariance check.

@@ -50,16 +50,6 @@ def test_light_prepare_power_cdf():
     assert float(jnp.min(pdf[idx == 0])) > 0
 
 
-def test_onehot_fetch_matches_gather():
-    """The MXU one-hot row fetch is exact vs the plain gather (it is the
-    production fetch path at frame scale)."""
-    rng = np.random.RandomState(3)
-    table = jnp.asarray(rng.randn(128, 9).astype(np.float32) * 100.0)
-    idx = jnp.asarray(rng.randint(0, 128, (70000,)), jnp.int32)
-    got = light_mod._onehot_fetch(table, idx)
-    np.testing.assert_array_equal(np.asarray(got), np.asarray(table[idx]))
-
-
 def test_sphere_light_cone_sampling_hits_sphere():
     scene = _two_light_scene()
     lights = light_mod.prepare(scene)
@@ -567,7 +557,7 @@ def test_sharc_splat_dedup_matches_naive():
 
 def test_restir_shared_offset_mode_unbiased():
     """The "shared" spatial neighbor mode (one rolled offset per round —
-    the TPU gather-free addressing, ReSTIRConfig.spatial_offset_mode)
+    gather-free addressing, ReSTIRConfig.spatial_offset_mode)
     must stay unbiased: pairwise MIS normalizes the stream for any
     content-independent neighbor choice."""
     scene = _two_light_scene()

@@ -59,8 +59,7 @@ def test_sharded_render_matches_single_device():
 def test_sharded_compact_from_bounce1_matches_single_device():
     """The bounce-1 compaction + coherence sort (compact_from=1) under
     GSPMD row sharding: the full-frame cumsum/permute machinery inserts
-    collectives, which must not change the math. De-risks flipping the
-    default after the TPU A/B."""
+    collectives, which must not change the math."""
     import dataclasses
 
     from drts_tpu.models import myscene
@@ -145,12 +144,12 @@ def test_full_pipeline_sharded_matches_single_device():
 
     assert len(img8.sharding.device_set) == 8
 
-    # Numeric model (round-2 VERDICT #3, root-caused by stage bisection,
-    # tools/diag_shard_eq.py): GSPMD does not change the math, but the
-    # sharded and unsharded programs are DIFFERENT XLA compilations, and
-    # at different operand shapes the CPU/TPU backends make different FMA
-    # contraction / vectorization choices — legal 1-ULP f32 differences.
-    # The TAA/denoiser histories are stored f16-packed, so a 1-ULP f32
+    # Numeric model (root-caused by stage bisection): GSPMD does not
+    # change the math, but the sharded and unsharded programs are
+    # DIFFERENT XLA compilations, and at different operand shapes a
+    # backend makes different FMA contraction / vectorization choices —
+    # legal 1-ULP f32 differences.
+    # The denoiser histories are stored f16-packed, so a 1-ULP f32
     # wobble that lands on a rounding boundary quantizes to a full f16 ULP
     # (2^-11 relative ≈ 4.9e-4 at 1.0). The bisect confirms this is the
     # whole story: with ReSTIR and the denoiser disabled the reservoir and

@@ -180,23 +180,6 @@ def test_step_timer():
     assert fixed.frame_count >= 5  # caught up in fixed steps
 
 
-def test_cluster_plan_and_refit():
-    from drts_tpu.models import clusters
-    host = myscene.build(oscillator_grid=3)
-    pos = np.asarray(host.scene.center)
-    rad = np.asarray(host.scene.radius)
-    plan = clusters.build_plan(pos, rad)
-    members = plan.member_object
-    covered = np.sort(members[members >= 0])
-    np.testing.assert_array_equal(covered, np.arange(pos.shape[0]))
-    bounds = clusters.refit(plan, host.scene.center, host.scene.radius)
-    # Every member sphere is inside its cluster bound.
-    for ci in range(plan.num_clusters):
-        for mi in members[ci][members[ci] >= 0]:
-            d = np.linalg.norm(np.asarray(bounds.center[ci]) - pos[mi])
-            assert d + rad[mi] <= float(bounds.radius[ci]) + 1e-4
-
-
 @pytest.mark.skipif(os.environ.get("DRTS_SLOW_TESTS") != "1",
                     reason="driver compile-checks entry(); set "
                            "DRTS_SLOW_TESTS=1 to run locally")

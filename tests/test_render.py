@@ -232,32 +232,6 @@ def test_compact_from_bounce1_single_bounce():
     assert float(out_c.rays_traced) == float(out_d.rays_traced)
 
 
-def test_accel_deep_is_result_invariant():
-    """A second (finer) Morton accel for the compacted bounce sweeps is a
-    pure scheduling choice — radiance must be bitwise identical."""
-    import numpy as onp
-    from drts_tpu.models import clusters
-
-    host, cam, _ = _small_setup()
-    scene = host.scene
-    cfg = pathtrace.PathTraceConfig(width=64, height=64, bounces=5,
-                                    block_size=4096, compact_from=1,
-                                    compact_fraction=4)
-    plan = clusters.build_plan_morton(onp.asarray(scene.center),
-                                      onp.asarray(scene.radius),
-                                      max_members=64)
-    plan16 = clusters.build_plan_morton(onp.asarray(scene.center),
-                                        onp.asarray(scene.radius),
-                                        max_members=16)
-    accel = clusters.make_morton_accel(plan, scene.center, scene.radius)
-    deep = clusters.make_morton_accel(plan16, scene.center, scene.radius)
-    out_a = pathtrace.trace_image(scene, cam, cfg, 2, accel=accel)
-    out_b = pathtrace.trace_image(scene, cam, cfg, 2, accel=accel,
-                                  accel_deep=deep)
-    np.testing.assert_array_equal(np.asarray(out_a.radiance),
-                                  np.asarray(out_b.radiance))
-
-
 def test_compact_wavefront_overflow_drops_not_corrupts():
     """With a pathological 1-lane capacity, overflow rays are dropped
     (documented energy loss), never corrupting other pixels."""
@@ -336,8 +310,8 @@ def test_compact_gsel_mono_is_invisible():
 
 
 def test_compact_impl_equivalence():
-    """All src-table builders ("scatter", "two_level", "blocked_onehot",
-    "blocked_sort") must produce identical compaction outputs — src,
+    """All src-table builders ("scatter", "two_level", "blocked_sort")
+    must produce identical compaction outputs — src,
     keep/pos, slot_live, overflow — on a scattered live mask, with the
     coherence sort on and off, and across capacity-overflow waves."""
     import jax.numpy as jnp
@@ -349,8 +323,7 @@ def test_compact_impl_equivalence():
     for sort in (False, True):
         for wave in (0, 1):
             outs = {}
-            for impl in ("scatter", "two_level", "blocked_onehot",
-                         "blocked_sort"):
+            for impl in ("scatter", "two_level", "blocked_sort"):
                 cfg = pathtrace.PathTraceConfig(
                     width=256, height=160, compact_impl=impl,
                     compact_sort=sort)

@@ -1,133 +1,83 @@
-"""Tile-windowed reprojection kernel (ops/reproject_pallas.py): interpret-
-mode equivalence against the gather-based formulations it replaces in the
-denoiser, TAA, and ReSTIR temporal passes."""
+"""History reprojection gathers (ops/reproject.py) against numpy.
+
+Zero, global (sub-pixel, off-frame at the edges) and discontinuous
+(a moving object's edge) motion fields. Nearest copies packed f16-pair
+rows bit for bit; bilinear matches a float64 interpolation at the same
+float32 source positions; the in-bounds flag is exact.
+"""
 
 import jax.numpy as jnp
 import numpy as np
+import pytest
 
-from drts_tpu.ops import denoise, intersect, reproject_pallas as rp
+from drts_tpu.ops import reproject
 from drts_tpu.utils import math as m
 
-
-def _smooth_motion(h, w, mag=4.0, seed=0):
-    rng = np.random.RandomState(seed)
-    gx = mag * (rng.rand() - 0.5) * 2
-    gy = mag * (rng.rand() - 0.5) * 2
-    yy = np.arange(h, dtype=np.float32)[:, None]
-    xx = np.arange(w, dtype=np.float32)[None, :]
-    mx = gx + 0.004 * yy + 0.3 * np.sin(xx / 37.0)
-    my = gy + 0.003 * xx * 0 + 0.2 * np.cos(yy / 23.0)
-    return jnp.asarray(np.stack(np.broadcast_arrays(mx, my), axis=-1),
-                       jnp.float32)
+H, W = 24, 40
 
 
-def test_reproject_bilinear_matches_gather():
-    rng = np.random.RandomState(1)
-    h, w, c = 48, 400, 6
-    src = jnp.asarray(rng.rand(h, w, c), jnp.float32)
-    motion = _smooth_motion(h, w)
-    # _reproject dispatches on backend: the CPU default takes the gather
-    # path; forcing BACKEND="interpret" runs the Pallas kernel.
-    ref, ib = denoise._reproject(src, motion, "bilinear")
-    old = intersect.BACKEND
-    intersect.BACKEND = "interpret"
-    try:
-        out, ok = denoise._reproject(src, motion, "bilinear")
-    finally:
-        intersect.BACKEND = old
-    okn = np.asarray(ok)
-    ibn = np.asarray(ib)
-    # The kernel's ok additionally rejects residual outliers; on a smooth
-    # field it must cover nearly everything the gather path accepts.
-    assert (okn & ibn).sum() > 0.99 * ibn.sum()
-    both = okn & ibn
-    np.testing.assert_allclose(np.asarray(out)[both],
-                               np.asarray(ref)[both], atol=1e-4)
+def _motion(kind):
+    yy, xx = np.mgrid[0:H, 0:W].astype(np.float32)
+    if kind == "zero":
+        return np.zeros((H, W, 2), np.float32)
+    if kind == "global":
+        return np.broadcast_to(np.float32([2.37, -1.61]), (H, W, 2)).copy()
+    mot = np.stack([0.8 * np.sin(yy / 5.0), 0.6 * np.cos(xx / 7.0)], -1)
+    mot[:, W // 2:] += np.float32([-6.25, 3.5])     # object edge
+    return mot.astype(np.float32)
 
 
-def test_reproject_nearest_packed_bits_exact():
-    """Nearest mode must copy packed f16 bit rows EXACTLY (a single
-    weight-1.0 tap) — the ReSTIR reservoir fetch depends on it."""
-    rng = np.random.RandomState(2)
-    h, w = 48, 400
-    a = jnp.asarray(rng.rand(h, w), jnp.float32)
-    b = jnp.asarray(rng.rand(h, w), jnp.float32)
-    packed = jnp.stack([m.pack2f16(a, b)], axis=-1)
-    motion = _smooth_motion(h, w, mag=2.5, seed=3)
-    ref, ib = denoise._reproject(packed, motion, "nearest")
-    old = intersect.BACKEND
-    intersect.BACKEND = "interpret"
-    try:
-        out, ok = denoise._reproject(packed, motion, "nearest")
-    finally:
-        intersect.BACKEND = old
-    both = np.asarray(ok) & np.asarray(ib)
-    # Bit-exact rows modulo round-half tie-breaks (round-to-even vs box):
-    # allow a vanishing mismatch fraction, require everything else exact.
-    refu = np.asarray(m.unpack2f16(ref[..., 0])[0])
-    outu = np.asarray(m.unpack2f16(out[..., 0])[0])
-    mism = (refu != outu) & both
-    assert mism.mean() < 1e-3
-    assert both.sum() > 0.98 * np.asarray(ib).sum()
+def _positions(motion):
+    yy, xx = np.mgrid[0:H, 0:W].astype(np.float32)
+    return (yy + motion[..., 1]).astype(np.float64), \
+        (xx + motion[..., 0]).astype(np.float64)
 
 
-def test_reproject_discontinuous_motion_exact_fallback():
-    """Motion discontinuities (foreground parallax far from the tile
-    mean) must resolve EXACTLY via the compacted gather fallback — the
-    orbit-fidelity regression case: without the fallback every near-
-    object pixel is disoccluded every frame."""
-    rng = np.random.RandomState(7)
-    h, w, c = 48, 400, 5
-    src = jnp.asarray(rng.rand(h, w, c), jnp.float32)
-    # Background: uniform 4px pan. Foreground blob: 17px opposing motion
-    # (well beyond RADIUS from any tile mean).
-    yy, xx = np.mgrid[:h, :w].astype(np.float32)
-    fg = ((yy - 24.0) ** 2 + (xx - 200.0) ** 2) < 15.0 ** 2
-    mx = np.where(fg, -17.3, 4.1).astype(np.float32)
-    my = np.where(fg, 9.7, 0.6).astype(np.float32)
-    motion = jnp.asarray(np.stack([mx, my], axis=-1))
-    for mode in ("bilinear", "nearest"):
-        ref, ib = denoise._reproject(src, motion, mode)
-        out, ok = rp.reproject_packed(src, motion, mode, interpret=True)
-        okn, ibn = np.asarray(ok), np.asarray(ib)
-        # Every in-bounds lane recovered (fallback capacity not exceeded).
-        assert (okn == ibn).all(), mode
-        np.testing.assert_allclose(np.asarray(out)[ibn],
-                                   np.asarray(ref)[ibn], atol=1e-4,
-                                   err_msg=mode)
-
-    # Past the fallback capacity, lanes degrade to ok=False (never wrong
-    # values). Incoherent per-pixel motion defeats both tile windows
-    # (no cluster mean fits), so with a ~128-lane capacity most lanes
-    # must overflow.
-    rng2 = np.random.RandomState(8)
-    scatter_motion = jnp.asarray(
-        rng2.uniform(-30.0, 30.0, (h, w, 2)).astype(np.float32))
-    out2, ok2 = rp.reproject_packed(src, scatter_motion, "nearest",
-                                    interpret=True, exact_fallback=True,
-                                    fallback_fraction=h * w)
-    ref2, ib2 = denoise._reproject(src, scatter_motion, "nearest")
-    both = np.asarray(ok2) & np.asarray(ib2)
-    assert both.sum() < np.asarray(ib2).sum()  # some lanes overflowed
-    np.testing.assert_allclose(np.asarray(out2)[both],
-                               np.asarray(ref2)[both], atol=1e-4)
+def _in_bounds(py, px):
+    return (px >= 0) & (px <= W - 1) & (py >= 0) & (py <= H - 1)
 
 
-def test_reproject_identity_and_large_global_shift():
-    """Identity motion is exact everywhere; a large uniform shift (well
-    beyond the tap radius) is absorbed by the window offset."""
-    h, w, c = 32, 384, 3
-    src = jnp.asarray(
-        np.random.RandomState(4).rand(h, w, c), jnp.float32)
-    out, ok = rp.reproject_packed(src, jnp.zeros((h, w, 2)), "bilinear",
-                                  interpret=True)
-    assert bool(np.asarray(ok).all())
-    np.testing.assert_allclose(np.asarray(out), np.asarray(src), atol=1e-6)
+@pytest.mark.parametrize("kind", ["zero", "global", "discontinuous"])
+def test_nearest_copies_packed_rows_bit_exact(kind):
+    rng = np.random.RandomState(3)
+    vals = rng.randn(H, W, 4).astype(np.float32) * 10
+    packed = jnp.stack([m.pack2f16(vals[..., 0], vals[..., 1]),
+                        m.pack2f16(vals[..., 2], vals[..., 3])], axis=-1)
+    motion = _motion(kind)
+    prev, inb = reproject.reproject(packed, jnp.asarray(motion), "nearest")
+    py, px = _positions(motion)
+    yi = np.clip(np.round(py), 0, H - 1).astype(int)
+    xi = np.clip(np.round(px), 0, W - 1).astype(int)
+    want = np.asarray(packed)[yi, xi]
+    np.testing.assert_array_equal(np.asarray(prev).view(np.uint32),
+                                  want.view(np.uint32))
+    np.testing.assert_array_equal(np.asarray(inb), _in_bounds(py, px))
+    if kind == "zero":
+        np.testing.assert_array_equal(np.asarray(prev).view(np.uint32),
+                                      np.asarray(packed).view(np.uint32))
 
-    shift = jnp.ones((h, w, 2)) * jnp.asarray([40.0, -10.0])
-    out2, ok2 = rp.reproject_packed(src, shift, "nearest", interpret=True)
-    ref, ib = denoise._reproject(src, shift, "nearest")
-    both = np.asarray(ok2) & np.asarray(ib)
-    assert both.sum() == np.asarray(ib).sum()
-    np.testing.assert_allclose(np.asarray(out2)[both],
-                               np.asarray(ref)[both], atol=1e-6)
+
+@pytest.mark.parametrize("kind", ["zero", "global", "discontinuous"])
+def test_bilinear_matches_float64(kind):
+    rng = np.random.RandomState(4)
+    src = rng.randn(H, W, 3).astype(np.float32)
+    motion = _motion(kind)
+    prev, inb = reproject.reproject(jnp.asarray(src), jnp.asarray(motion),
+                                    "bilinear")
+    py, px = _positions(motion)
+    s = src.astype(np.float64)
+    y0, x0 = np.floor(py), np.floor(px)
+    fy, fx = (py - y0)[..., None], (px - x0)[..., None]
+    y0i = np.clip(y0, 0, H - 1).astype(int)
+    x0i = np.clip(x0, 0, W - 1).astype(int)
+    y1i, x1i = np.minimum(y0i + 1, H - 1), np.minimum(x0i + 1, W - 1)
+    want = ((s[y0i, x0i] * (1 - fx) + s[y0i, x1i] * fx) * (1 - fy)
+            + (s[y1i, x0i] * (1 - fx) + s[y1i, x1i] * fx) * fy)
+    np.testing.assert_allclose(np.asarray(prev), want, atol=1e-5)
+    np.testing.assert_array_equal(np.asarray(inb), _in_bounds(py, px))
+
+
+def test_unknown_filter_raises():
+    with pytest.raises(ValueError):
+        reproject.reproject(jnp.zeros((4, 4, 1)), jnp.zeros((4, 4, 2)),
+                            "catmull")

@@ -2,6 +2,7 @@
 
 import jax.numpy as jnp
 import numpy as np
+import pytest
 
 from drts_tpu.models import geometry
 from drts_tpu.ops import intersect, trimesh
@@ -74,127 +75,6 @@ def test_instanced_meshes_and_attributes():
     assert 0.0 <= float(uv[0, 0]) <= 1.0
 
 
-def test_pallas_mesh_kernel_matches_xla():
-    """Interpret-mode equivalence of the Pallas instanced-mesh kernel
-    (ops/trimesh_pallas.py) against the XLA instance sweep — random rays
-    against rotated/scaled geosphere instances (round-3 VERDICT #6)."""
-    rng = np.random.RandomState(3)
-    mesh = _unit_geosphere(3)
-    k = 5
-    pos = jnp.asarray(rng.randn(k, 3) * 4, jnp.float32)
-    rot = m.normalize(jnp.asarray(rng.randn(k, 4), jnp.float32))
-    scale = jnp.asarray(0.5 + rng.rand(k) * 1.5, jnp.float32)
-    n = 4096
-    o = jnp.asarray(rng.randn(n, 3) * 8, jnp.float32)
-    d = m.normalize(jnp.asarray(rng.randn(n, 3), jnp.float32))
-    tmin = jnp.zeros(n)
-    tmax = jnp.full((n,), 1e9)
-
-    ref = trimesh.intersect_instances(o, d, tmin, tmax, mesh, pos, rot,
-                                      scale)
-    old = intersect.BACKEND
-    intersect.BACKEND = "interpret"
-    try:
-        pal = trimesh.intersect_instances(o, d, tmin, tmax, mesh, pos, rot,
-                                          scale)
-    finally:
-        intersect.BACKEND = old
-
-    hit_r = np.asarray(ref.hit)
-    hit_p = np.asarray(pal.hit)
-    # Hit classification must agree except for degenerate grazing lanes.
-    assert (hit_r == hit_p).mean() > 0.999
-    both = hit_r & hit_p
-    t_r = np.asarray(ref.t)[both]
-    t_p = np.asarray(pal.t)[both]
-    # Exact t is Newton/MT-refined; near-tie faces (shared edges) may
-    # resolve to either side, so compare distances, not face ids.
-    np.testing.assert_allclose(t_p, t_r, rtol=1e-3, atol=1e-4)
-    same_face = (np.asarray(ref.face)[both] == np.asarray(pal.face)[both])
-    same_inst = (np.asarray(ref.instance)[both]
-                 == np.asarray(pal.instance)[both])
-    assert (same_face & same_inst).mean() > 0.98
-    # Barycentrics of same-face winners agree.
-    sf = np.zeros_like(hit_r)
-    sf[both] = same_face & same_inst
-    np.testing.assert_allclose(np.asarray(pal.barycentrics)[sf],
-                               np.asarray(ref.barycentrics)[sf],
-                               atol=2e-3)
-
-
-def test_pallas_mesh_kernel_many_instances():
-    """Multi-chunk TLAS: 48 instances span several INST_CHUNK groups, so
-    the kernel's instance-chunk scalar cull, the near-to-far chunk
-    reorder, and the sorted-position -> instance-id mapping all engage.
-    Must agree with the XLA sweep like the small case."""
-    rng = np.random.RandomState(11)
-    mesh = _unit_geosphere(2)
-    k = 48
-    pos = jnp.asarray(rng.randn(k, 3) * 10, jnp.float32)
-    rot = m.normalize(jnp.asarray(rng.randn(k, 4), jnp.float32))
-    scale = jnp.asarray(0.4 + rng.rand(k) * 1.2, jnp.float32)
-    n = 4096
-    o = jnp.asarray(rng.randn(n, 3) * 12, jnp.float32)
-    d = m.normalize(jnp.asarray(rng.randn(n, 3), jnp.float32))
-    tmin = jnp.zeros(n)
-    tmax = jnp.full((n,), 1e9)
-
-    ref = trimesh.intersect_instances(o, d, tmin, tmax, mesh, pos, rot,
-                                      scale)
-    old = intersect.BACKEND
-    intersect.BACKEND = "interpret"
-    try:
-        pal = trimesh.intersect_instances(o, d, tmin, tmax, mesh, pos, rot,
-                                          scale)
-    finally:
-        intersect.BACKEND = old
-
-    hit_r = np.asarray(ref.hit)
-    hit_p = np.asarray(pal.hit)
-    assert (hit_r == hit_p).mean() > 0.999
-    both = hit_r & hit_p
-    np.testing.assert_allclose(np.asarray(pal.t)[both],
-                               np.asarray(ref.t)[both], rtol=1e-3,
-                               atol=1e-4)
-    same = (np.asarray(ref.instance)[both] == np.asarray(pal.instance)[both])
-    assert same.mean() > 0.98
-
-
-def test_pallas_mesh_anyhit_matches_closest_hit():
-    """The any-hit mesh kernel (shadow rays) must classify occlusion
-    exactly like the closest-hit sweep's hit bit — including range-bounded
-    rays (finite tmax) and dead lanes (tmax < tmin)."""
-    rng = np.random.RandomState(23)
-    mesh = _unit_geosphere(2)
-    k = 24
-    pos = jnp.asarray(rng.randn(k, 3) * 8, jnp.float32)
-    rot = m.normalize(jnp.asarray(rng.randn(k, 4), jnp.float32))
-    scale = jnp.asarray(0.5 + rng.rand(k), jnp.float32)
-    n = 4096
-    o = jnp.asarray(rng.randn(n, 3) * 10, jnp.float32)
-    d = m.normalize(jnp.asarray(rng.randn(n, 3), jnp.float32))
-    tmin = jnp.zeros(n)
-    # Mix of unbounded, short, and dead rays.
-    tmax = jnp.asarray(np.where(rng.rand(n) < 0.3, 1e9,
-                                np.where(rng.rand(n) < 0.5,
-                                         rng.rand(n) * 12, -1.0)),
-                       jnp.float32)
-
-    ref = trimesh.intersect_instances(o, d, tmin, tmax, mesh, pos, rot,
-                                      scale)
-    old = intersect.BACKEND
-    intersect.BACKEND = "interpret"
-    try:
-        occ = trimesh.intersect_instances_any(o, d, tmin, tmax, mesh, pos,
-                                              rot, scale)
-    finally:
-        intersect.BACKEND = old
-    occ = np.asarray(occ)
-    hit_r = np.asarray(ref.hit)
-    assert (occ == hit_r).mean() > 0.999, (occ != hit_r).sum()
-    assert not occ[np.asarray(tmax) < 0].any()
-
-
 def test_as_mesh_scene_renders():
     """The demo scene converted to 100% instanced triangle meshes
     (myscene.as_mesh_scene — the reference's actual geosphere BLAS
@@ -225,11 +105,11 @@ def test_as_mesh_scene_renders():
     assert abs(r.mean() - rs.mean()) / max(rs.mean(), 1e-6) < 0.25
 
 
-def _cand_vs_serial_scene(seed, k=24, n=4096, ground=True):
-    """Random instanced scene exercising the candidate-iteration path's
-    hard cases: a huge ground-like instance whose bound contains most ray
-    origins (clamped-entry ties), overlapping bounds, and rays spawned on
-    instance surfaces (secondary-bounce geometry)."""
+def _instanced_scene(seed, k=24, n=4096, ground=True):
+    """Random instanced scene with the hard cases of the instance loop's
+    bounding-sphere cull: a huge ground-like instance whose bound contains
+    most ray origins, overlapping bounds, and rays spawned on instance
+    surfaces (secondary-bounce geometry)."""
     rng = np.random.RandomState(seed)
     mesh = _unit_geosphere(3)
     pos = rng.randn(k, 3).astype(np.float32) * 6
@@ -248,77 +128,6 @@ def _cand_vs_serial_scene(seed, k=24, n=4096, ground=True):
     d = m.normalize(jnp.asarray(rng.randn(n, 3), jnp.float32))
     return (mesh, jnp.asarray(pos), rot, jnp.asarray(scale),
             jnp.asarray(o), d)
-
-
-def _run_cand_vs_serial(monkeypatch, iters):
-    mesh, pos, rot, scale, o, d = _cand_vs_serial_scene(7)
-    n = o.shape[0]
-    tmin = jnp.zeros(n)
-    tmax = jnp.full((n,), 1e9)
-    old = intersect.BACKEND
-    intersect.BACKEND = "interpret"
-    try:
-        monkeypatch.setattr(trimesh, "MESH_CAND", False)
-        serial = trimesh.intersect_instances(o, d, tmin, tmax, mesh, pos,
-                                             rot, scale)
-        monkeypatch.setattr(trimesh, "MESH_CAND", True)
-        monkeypatch.setattr(trimesh, "MESH_CAND_ITERS", iters)
-        cand = trimesh.intersect_instances(o, d, tmin, tmax, mesh, pos,
-                                           rot, scale)
-    finally:
-        intersect.BACKEND = old
-    hit_s = np.asarray(serial.hit)
-    hit_c = np.asarray(cand.hit)
-    assert (hit_s == hit_c).mean() > 0.999, (hit_s != hit_c).sum()
-    both = hit_s & hit_c
-    np.testing.assert_allclose(np.asarray(cand.t)[both],
-                               np.asarray(serial.t)[both], rtol=1e-3,
-                               atol=1e-4)
-    same = (np.asarray(serial.instance)[both]
-            == np.asarray(cand.instance)[both])
-    assert same.mean() > 0.99, same.mean()
-
-
-def test_candidate_path_matches_serial(monkeypatch):
-    """Candidate-iteration closest hit (bound_scan + shared-BLAS sweeps,
-    trimesh_pallas.intersect_mesh_instances_cand) must match the serial
-    instanced kernel on a scene with a ground-like giant bound,
-    overlapping bounds, and surface-spawned rays."""
-    _run_cand_vs_serial(monkeypatch, 6)
-
-
-def test_candidate_path_backstop(monkeypatch):
-    """iters=1 forces most enumeration through the exact backstop kernel:
-    the merge of candidate-phase and backstop results must stay correct."""
-    _run_cand_vs_serial(monkeypatch, 1)
-
-
-def test_candidate_anyhit_matches_serial(monkeypatch):
-    """Candidate-iteration any-hit must classify occlusion exactly like
-    the serial any-hit kernel, including range-bounded shadow segments
-    and lanes starting inside the ground-like giant bound."""
-    rng = np.random.RandomState(13)
-    mesh, pos, rot, scale, o, d = _cand_vs_serial_scene(13)
-    n = o.shape[0]
-    tmin = jnp.zeros(n)
-    # Mixed ranges: some unbounded, some short (unoccluded), some dead.
-    tmax = jnp.asarray(np.where(rng.rand(n) < 0.2, 0.5,
-                                np.where(rng.rand(n) < 0.1, -1.0, 1e9)),
-                       jnp.float32)
-    old = intersect.BACKEND
-    intersect.BACKEND = "interpret"
-    try:
-        monkeypatch.setattr(trimesh, "MESH_CAND", False)
-        occ_s = np.asarray(trimesh.intersect_instances_any(
-            o, d, tmin, tmax, mesh, pos, rot, scale))
-        monkeypatch.setattr(trimesh, "MESH_CAND", True)
-        monkeypatch.setattr(trimesh, "MESH_CAND_ITERS", 4)
-        occ_c = np.asarray(trimesh.intersect_instances_any(
-            o, d, tmin, tmax, mesh, pos, rot, scale))
-    finally:
-        intersect.BACKEND = old
-    assert (occ_s == occ_c).mean() > 0.999, (occ_s != occ_c).sum()
-    assert not occ_c[np.asarray(tmax) < 0].any()
 
 
 def test_per_vertex_motion_vectors():
@@ -377,113 +186,97 @@ def test_per_vertex_motion_vectors():
     assert np.abs(got[valid1]).max() > 0.05
 
 
-def test_candidate_fused_matches_serial(monkeypatch):
-    """Fused single-launch candidate kernel (DRTS_MESH_CAND=2,
-    trimesh_pallas.cand_fused) must match the serial kernel like the
-    multi-launch form does."""
-    mesh, pos, rot, scale, o, d = _cand_vs_serial_scene(7)
+def _per_instance_reference(o, d, tmin, tmax, mesh, pos, rot, scale):
+    """Closest hit over instances, each instance swept alone over the full
+    ray range (no cull), the nearest kept in numpy."""
+    ts, faces, insts = [], [], []
+    for i in range(pos.shape[0]):
+        inv = m.quat_conj(rot[i])
+        o_l = m.quat_rotate(inv, o - pos[i]) / scale[i]
+        d_l = m.quat_rotate(inv, d) / scale[i]
+        t, face, _, _ = trimesh.intersect_mesh(o_l, d_l, tmin, tmax, mesh)
+        ts.append(np.asarray(t))
+        faces.append(np.asarray(face))
+    ts = np.stack(ts)
+    best = ts.argmin(0)
+    lanes = np.arange(ts.shape[1])
+    return ts[best, lanes], np.stack(faces)[best, lanes], best
+
+
+@pytest.mark.parametrize("seed,ground,bounded", [
+    (7, True, False), (11, False, False), (13, True, True)])
+def test_instance_loop_matches_per_instance_reference(seed, ground, bounded):
+    """The fori_loop instance sweep (with its running-best bounding-sphere
+    cull) finds the same closest hit as sweeping each instance alone."""
+    mesh, pos, rot, scale, o, d = _instanced_scene(seed, k=12, n=1024,
+                                                   ground=ground)
     n = o.shape[0]
     tmin = jnp.zeros(n)
-    tmax = jnp.full((n,), 1e9)
-    old = intersect.BACKEND
-    intersect.BACKEND = "interpret"
-    try:
-        monkeypatch.setattr(trimesh, "MESH_CAND", 0)
-        serial = trimesh.intersect_instances(o, d, tmin, tmax, mesh, pos,
-                                             rot, scale)
-        monkeypatch.setattr(trimesh, "MESH_CAND", 2)
-        monkeypatch.setattr(trimesh, "MESH_CAND_ITERS", 5)
-        fused = trimesh.intersect_instances(o, d, tmin, tmax, mesh, pos,
-                                            rot, scale)
-    finally:
-        intersect.BACKEND = old
-    hit_s = np.asarray(serial.hit)
-    hit_f = np.asarray(fused.hit)
-    assert (hit_s == hit_f).mean() > 0.999, (hit_s != hit_f).sum()
-    both = hit_s & hit_f
-    np.testing.assert_allclose(np.asarray(fused.t)[both],
-                               np.asarray(serial.t)[both], rtol=1e-3,
-                               atol=1e-4)
-    same = (np.asarray(serial.instance)[both]
-            == np.asarray(fused.instance)[both])
-    assert same.mean() > 0.99, same.mean()
+    tmax = (jnp.asarray(np.random.RandomState(seed).rand(n) * 15,
+                        jnp.float32) if bounded else jnp.full((n,), 1e9))
+    got = trimesh.intersect_instances(o, d, tmin, tmax, mesh, pos, rot,
+                                      scale)
+    t_ref, face_ref, inst_ref = _per_instance_reference(
+        o, d, tmin, tmax, mesh, pos, rot, scale)
+    hit_ref = np.isfinite(t_ref)
+    np.testing.assert_array_equal(np.asarray(got.hit), hit_ref)
+    # Same arithmetic, compiled in another program: XLA may fuse (and so
+    # round) differently, a few f32 ulps of relative error.
+    np.testing.assert_allclose(np.asarray(got.t)[hit_ref], t_ref[hit_ref],
+                               rtol=1e-4)
+    same = ((np.asarray(got.instance) == inst_ref)
+            & (np.asarray(got.face) == face_ref))[hit_ref]
+    assert same.mean() > 0.999, same.mean()
 
 
-def test_convexity_detection_and_cone_tables():
-    """build_mesh_tables must flag the geosphere convex with outward
-    per-chunk normal cones, and refuse convexity for a non-convex mesh
-    (two disjoint triangles cannot pass the closed-manifold plane test)."""
-    from drts_tpu.ops import trimesh_pallas as tp
+def test_instances_any_is_closest_hit_bit():
+    """Any-hit over instances = the closest-hit sweep's hit bit, with
+    bounded, unbounded and dead (tmax < tmin) rays."""
+    mesh, pos, rot, scale, o, d = _instanced_scene(5, k=10, n=512)
+    rng = np.random.RandomState(5)
+    tmax = jnp.asarray(np.where(rng.rand(512) < 0.3, 1e9,
+                                np.where(rng.rand(512) < 0.5,
+                                         rng.rand(512) * 12, -1.0)),
+                       jnp.float32)
+    tmin = jnp.zeros(512)
+    occ = np.asarray(trimesh.intersect_instances_any(o, d, tmin, tmax, mesh,
+                                                     pos, rot, scale))
+    t_ref, _, _ = _per_instance_reference(o, d, tmin, tmax, mesh, pos, rot,
+                                          scale)
+    np.testing.assert_array_equal(occ, np.isfinite(t_ref))
+    assert not occ[np.asarray(tmax) < 0].any()
 
+
+@pytest.mark.parametrize("ray_block,face_block", [(7, 16), (64, 50),
+                                                  (4096, 512)])
+def test_mesh_sweep_blocking_is_result_invariant(ray_block, face_block):
+    """Ray and face block sizes (padding included) change the schedule,
+    not the hits."""
     mesh = _unit_geosphere(3)
-    assert mesh.convex
-    assert abs(mesh.local_radius - 1.0) < 1e-3
-    b = np.asarray(mesh.tri_bounds)
-    assert b.shape[0] == 8
-    for c in range(mesh.n_chunks):
-        an = b[4:7, c]
-        ln = np.linalg.norm(an)
-        assert abs(ln - 1.0) < 1e-4          # unit cone axis
-        # Outward: axis points away from the origin-centered sphere, i.e.
-        # roughly along the chunk centroid direction.
-        ctr = b[0:3, c]
-        assert float(an @ (ctr / (np.linalg.norm(ctr) + 1e-9))) > 0.3
-        assert -1.0 <= b[7, c] <= 1.0
-
-    # Non-convex: a saddle-ish open sheet (not a closed manifold either).
-    v0 = np.array([[0, 0, 0], [2, 0, 0]], np.float32)
-    e1 = np.array([[1, 0, 0], [1, 0, 0]], np.float32)
-    e2 = np.array([[0, 1, 0], [0, 1, 1]], np.float32)
-    *_, convex = tp.build_mesh_tables(v0, e1, e2)
-    assert not convex
-
-
-def test_convex_cull_interior_rays_match_reference(monkeypatch):
-    """Transmission-style rays with origins INSIDE a geosphere instance
-    must keep the full chunk sweep (the |o_local| > R guard): back-face
-    exits are their closest hits, and the convexity cull must not change
-    them. Compares the Pallas candidate path (cull ON) against the
-    portable XLA sweep."""
-    mesh = _unit_geosphere(3)
-    assert mesh.convex
-    rng = np.random.RandomState(3)
-    k = 6
-    pos = rng.randn(k, 3).astype(np.float32) * 5
-    scale = (0.8 + rng.rand(k)).astype(np.float32)
-    rot = m.normalize(jnp.asarray(rng.randn(k, 4), jnp.float32))
-    n = 256
-    which = rng.randint(0, k, n)
-    # Origins strictly inside their instance (|o_local| ~ 0.5 R).
-    off = rng.randn(n, 3)
-    off /= np.linalg.norm(off, axis=1, keepdims=True)
-    o = pos[which] + off * (0.5 * scale[which][:, None])
+    rng = np.random.RandomState(2)
+    n = 300
+    o = jnp.asarray(rng.randn(n, 3) * 3, jnp.float32)
     d = m.normalize(jnp.asarray(rng.randn(n, 3), jnp.float32))
-    o = jnp.asarray(o)
-    tmin = jnp.full((n,), 1e-3)
-    tmax = jnp.full((n,), 1e9)
+    args = (o, d, jnp.zeros(n), jnp.full((n,), 1e9), mesh)
+    t0, f0, u0, v0 = trimesh.intersect_mesh(*args, ray_block=n,
+                                            face_block=mesh.v0.shape[0])
+    t1, f1, u1, v1 = trimesh.intersect_mesh(*args, ray_block=ray_block,
+                                            face_block=face_block)
+    np.testing.assert_array_equal(np.asarray(t1), np.asarray(t0))
+    np.testing.assert_array_equal(np.asarray(f1), np.asarray(f0))
+    np.testing.assert_array_equal(np.asarray(u1), np.asarray(u0))
 
-    old = intersect.BACKEND
-    intersect.BACKEND = "xla"
-    try:
-        ref = trimesh.intersect_instances(o, d, tmin, tmax, mesh,
-                                          jnp.asarray(pos), rot,
-                                          jnp.asarray(scale))
-    finally:
-        intersect.BACKEND = old
-    intersect.BACKEND = "interpret"
-    try:
-        monkeypatch.setattr(trimesh, "MESH_CAND", True)
-        got = trimesh.intersect_instances(o, d, tmin, tmax, mesh,
-                                          jnp.asarray(pos), rot,
-                                          jnp.asarray(scale))
-    finally:
-        intersect.BACKEND = old
-    hit_r = np.asarray(ref.hit)
-    hit_g = np.asarray(got.hit)
-    # Interior origins always exit through the instance: every ray hits.
-    assert hit_r.all()
-    assert (hit_r == hit_g).mean() > 0.995, (hit_r != hit_g).sum()
-    both = hit_r & hit_g
-    np.testing.assert_allclose(np.asarray(got.t)[both],
-                               np.asarray(ref.t)[both], rtol=1e-3,
-                               atol=1e-4)
+
+def test_morton_face_order_is_a_permutation_of_the_geometry():
+    pos, nrm, uv, idx = geometry.create_geosphere(2.0, 3)
+    mesh = trimesh.make_mesh(pos, nrm, uv, idx)
+    key = lambda f: sorted(map(tuple, np.asarray(f)))  # noqa: E731
+    assert key(mesh.faces) == key(idx)
+    np.testing.assert_allclose(
+        np.asarray(mesh.v0), np.asarray(pos)[np.asarray(mesh.faces)[:, 0]])
+    # Consecutive faces are spatially close: mean centroid step well under
+    # the mean distance between random faces.
+    cent = np.asarray(mesh.v0 + (mesh.e1 + mesh.e2) / 3.0)
+    step = np.linalg.norm(np.diff(cent, axis=0), axis=1).mean()
+    rand = np.linalg.norm(cent - cent[::-1], axis=1).mean()
+    assert step < 0.5 * rand
